@@ -23,10 +23,15 @@ setup(
     name="shadowing-tpu",
     version="0.1.0",
     description="TPU-native Path Shadowing Monte Carlo (JAX/XLA/Pallas)",
-    packages=find_packages(include=["shadowing_tpu", "shadowing_tpu.*"]),
-    package_data={"shadowing_tpu.data": ["_bundled/*.npz"]},
+    packages=find_packages(include=["shadowing_tpu", "shadowing_tpu.*",
+                                    "shadowing_tpu_torch",
+                                    "shadowing_tpu_torch.*"]),
+    package_data={"shadowing_tpu.data": ["_bundled/*.npz"],
+                  "shadowing_tpu_torch": ["csrc/*.cu"],
+                  "shadowing_tpu_torch.data": ["_bundled/*.npz"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "pandas"],
-    extras_require={"viz": ["matplotlib"], "test": ["pytest", "scipy"]},
+    extras_require={"viz": ["matplotlib"], "test": ["pytest", "scipy"],
+                    "torch": ["torch"]},
     ext_modules=ext_modules,
 )

@@ -1,0 +1,117 @@
+"""Build and bind the hand-written CUDA kernels of ``csrc/``.
+
+At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
+one shared library with a plain C interface, placed under
+``build/torch_kernels/<hash of sources and flags>/`` beside the package, and
+loaded with ``ctypes``. Each C entry point launches on the stream it is
+given and returns ``cudaGetLastError()``; :meth:`Kernel.launch` raises if
+that is not 0. Nothing here is imported or compiled at module import.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    for cand in (os.environ.get("CUDA_HOME"), CUDA_HOME):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
+    return found
+
+
+def library_path() -> Path:
+    """Where the library for the current sources is (or will be) built."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / "libshadowing_kernels.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the kernels unless a library of the same sources exists;
+    returns its path. ``verbose`` adds ``-Xptxas -v`` and prints the
+    compiler's report of registers and shared memory."""
+    path = library_path()
+    if path.exists() and not verbose:
+        return path
+    path.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
+    if verbose:
+        print(res.stderr.strip())
+    os.replace(tmp, path)          # atomic: concurrent builders never see half a file
+    return path
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            _lib = ctypes.CDLL(str(build()))
+        return _lib
+
+
+class Kernel:
+    """One C entry point of the library, with its launch counter.
+
+    ``argtypes`` lists the ctypes of the arguments before the trailing
+    stream (pointers as ``c_void_p``, sizes as ``c_int``)."""
+
+    def __init__(self, name: str, argtypes: list):
+        self.name = name
+        self.argtypes = argtypes
+        self.launches = 0
+        self._fn = None
+
+    def launch(self, *args) -> None:
+        if self._fn is None:
+            fn = getattr(_library(), self.name)
+            fn.argtypes = [*self.argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        stream = torch.cuda.current_stream().cuda_stream
+        err = self._fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.name}: CUDA launch failed with error "
+                               f"{err} ({_error_name(err)})")
+        self.launches += 1
+
+
+def _error_name(err: int) -> str:
+    fn = _library().kernels_error_string
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_char_p
+    return fn(err).decode()
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

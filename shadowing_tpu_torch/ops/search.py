@@ -1,0 +1,213 @@
+"""Two-pass exact search: pass-1 block minima (kernel 1), pass-2 rescore.
+
+Port of :mod:`shadowing_tpu.ops.pallas_search`.
+
+* **Pass 1** (:func:`score_blockmin`): for every context, trajectory row and
+  block of ``L = 128`` window starts, the minimum of the expansion score
+  ``norms - 2 * cross``. On a CUDA tensor it launches the hand-written
+  kernel ``csrc/blockmin_toeplitz.cu``; on a CPU tensor it runs the plain
+  PyTorch version (``conv1d`` plus the min-fold). There is no fallback
+  between the two.
+* **Pass 2** (:func:`pass2_from_bmin`): select the ``cap`` best blocks per
+  context, rescore their windows exactly in fp32 from the raw data, take the
+  exact k smallest (lower flat id first on ties) and certify the result
+  against the best unselected block with a self-calibrated guard band.
+
+Flat ids are ``traj * n_out + t`` in int64; blocks use the r-major id
+``r * nblk + j`` for both pass-1 kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from shadowing_tpu_torch.ops._build import Kernel, ptr
+from shadowing_tpu_torch.ops.sliding import sliding_dot
+from shadowing_tpu_torch.ops.topk import topk_min
+
+L = 128                   # window starts per block
+MAX_WIDTH = 3 * L + 1     # widest filter the engine routes to the kernels (385)
+_WARPS = L // 32
+_JRUN = 8                 # j-blocks per CUDA thread block (amortises the filter staging)
+_SMEM_LIMIT = 200 * 1024  # dynamic shared memory a launch may ask for
+_SCRATCH = 256 << 20      # bytes of temporaries per chunk of the plain paths
+
+TOEPLITZ = Kernel("blockmin_toeplitz", [ctypes.c_void_p] * 4
+                  + [ctypes.c_int] * 9)
+
+
+def n_blocks(n_out: int) -> int:
+    return -(-n_out // L)
+
+
+def check_tensor(t: torch.Tensor, name: str, ndim: int, device) -> None:
+    """Raise unless ``t`` is a contiguous float32 tensor of rank ``ndim``
+    on ``device`` — what the kernels' raw pointers assume."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != torch.float32 or t.ndim != ndim or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 {ndim}-d tensor, "
+                         f"got {t.dtype} {tuple(t.shape)} "
+                         f"contiguous={t.is_contiguous()}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _fold_min(s: torch.Tensor, n_out: int) -> torch.Tensor:
+    """``(..., n_out)`` scores -> ``(..., nblk)`` block minima, +inf padded."""
+    nblk = n_blocks(n_out)
+    s = F.pad(s, (0, nblk * L - n_out), value=float("inf"))
+    return s.unflatten(-1, (nblk, L)).amin(-1)
+
+
+def score_blockmin_plain(y: torch.Tensor, norms: torch.Tensor,
+                         g: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch pass 1: ``conv1d`` cross terms plus the min-fold,
+    streamed over row chunks. Returns ``(B, R, nblk)``."""
+    R, _, _ = y.shape
+    B = g.shape[0]
+    n_out = norms.shape[1]
+    out = torch.empty((B, R, n_blocks(n_out)), dtype=torch.float32,
+                      device=y.device)
+    rows = max(1, _SCRATCH // (8 * B * n_blocks(n_out) * L))
+    for r0 in range(0, R, rows):
+        cross = sliding_dot(y[r0 : r0 + rows], g, n_out)        # (r, B, n_out)
+        s = norms[r0 : r0 + rows, None, :] - 2.0 * cross
+        out[:, r0 : r0 + rows] = _fold_min(s, n_out).transpose(0, 1)
+    return out
+
+
+def score_blockmin(y: torch.Tensor, norms: torch.Tensor,
+                   g: torch.Tensor) -> torch.Tensor:
+    """Pass-1 block minima ``(B, R, nblk)`` of ``norms - 2 * (y ⋆ g_b)``.
+
+    :param y: ``(R, C, T)`` trajectories
+    :param norms: ``(R, n_out)`` window norms (``+inf`` bars a row)
+    :param g: ``(B, C, w)`` combined context filters
+    """
+    check_tensor(y, "y", 3, y.device)
+    check_tensor(norms, "norms", 2, y.device)
+    check_tensor(g, "g", 3, y.device)
+    R, C, T = y.shape
+    B, Cg, w = g.shape
+    n_out = norms.shape[1]
+    if Cg != C or norms.shape[0] != R or n_out > T - w + 1:
+        raise ValueError(f"shape mismatch: y {tuple(y.shape)}, norms "
+                         f"{tuple(norms.shape)}, g {tuple(g.shape)}")
+    if y.device.type == "cpu":
+        return score_blockmin_plain(y, norms, g)
+    if y.device.type != "cuda":
+        raise ValueError(f"no blockmin_toeplitz kernel for device {y.device}")
+    nblk = n_blocks(n_out)
+    out = torch.empty((B, R, nblk), dtype=torch.float32, device=y.device)
+    seg_bytes = 4 * C * (L + w - 1)
+    per_ctx = 4 * (C * w + _WARPS)
+    bc = (_SMEM_LIMIT - seg_bytes) // per_ctx
+    if bc < 1:
+        raise ValueError(f"C={C}, w={w}: the staged segment exceeds the "
+                         f"kernel's {_SMEM_LIMIT} bytes of shared memory")
+    jrun = min(_JRUN, nblk)
+    if R * -(-nblk // jrun) >= 2**31:
+        raise ValueError(f"R={R} rows exceed the kernel's grid")
+    for b0 in range(0, B, bc):
+        gc = g[b0 : b0 + bc]
+        nb = gc.shape[0]
+        TOEPLITZ.launch(ptr(y), ptr(norms), ptr(gc), ptr(out[b0 : b0 + nb]),
+                        R, C, T, n_out, nblk, nb, w, jrun,
+                        seg_bytes + nb * per_ctx)
+    return out
+
+
+def _candidate_cross(y: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
+                     j: torch.Tensor) -> torch.Tensor:
+    """Exact fp32 cross terms ``(B, cap, L)`` of every window start of the
+    selected blocks ``(r, j)``, accumulated tap by tap (channel-major, as the
+    kernel does): every window is summed in the same order wherever it
+    sits, so equal windows score bit-equal and ties stay ties."""
+    B, C, w = g.shape
+    T = y.shape[2]
+    ch = torch.arange(C, device=y.device)
+    # valid starts never read past T; clamping only feeds padded starts,
+    # whose scores pass 2 discards
+    pos = (j[..., None] * L + torch.arange(L + w - 1, device=y.device)
+           ).clamp_(max=T - 1)                                    # (B, cap, S)
+    seg = y[r[..., None, None], ch[:, None], pos[:, :, None, :]]  # (B, cap, C, S)
+    acc = torch.zeros((B, r.shape[1], L), dtype=torch.float32, device=y.device)
+    for c in range(C):
+        for s in range(w):
+            acc.addcmul_(seg[:, :, c, s : s + L], g[:, c, s, None, None])
+    return acc
+
+
+def pass2_from_bmin(
+    bmin: torch.Tensor,     # (B, R, nblk) block minima, r-major
+    y: torch.Tensor,        # (R, C, T)
+    norms: torch.Tensor,    # (R, n_out)
+    g: torch.Tensor,        # (B, C, w)
+    k: int,
+    cap: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Global block selection, exact rescore, certified final top-k.
+
+    Returns scores ``(B, k)`` ascending, int64 flat ids ``traj * n_out + t``
+    and per-context certification flags ``ok (B,)``."""
+    B, R, nblk = bmin.shape
+    n_out = norms.shape[1]
+    nb = R * nblk
+    if cap is None:
+        # at most k - 1 blocks can hold a value strictly below the k-th
+        # winner, so k + slack blocks select every block that could matter
+        cap = min(max(k + 384, 512), nb)
+    cap = min(max(cap, -(-k // L)), nb)
+
+    mu_sel, bidx = torch.topk(bmin.reshape(B, nb), cap, dim=1, largest=False,
+                              sorted=True)
+    inf = torch.tensor(float("inf"), device=bmin.device)
+    mu_cap = mu_sel[:, -1] if cap < nb else inf.expand(B)
+    # blocks to flat order (the candidate order fixes the tie rule), carrying
+    # the pass-1 minima along to calibrate the guard below
+    bidx, perm = torch.sort(bidx, dim=1)
+    mu_sorted = torch.gather(mu_sel, 1, perm)
+    r = bidx // nblk
+    j = bidx % nblk
+
+    cross = _candidate_cross(y, g, r, j)                          # (B, cap, L)
+    t = j[..., None] * L + torch.arange(L, device=y.device)       # (B, cap, L)
+    valid = t < n_out
+    nsel = norms[r[..., None], t.clamp(max=n_out - 1)]
+    # padded starts and barred rows become a huge finite loser, so the
+    # arithmetic below stays NaN-free
+    nsel = torch.where(valid & torch.isfinite(nsel), nsel,
+                       torch.tensor(1e30, device=y.device))
+    s = nsel - 2.0 * cross
+    flat = r[..., None] * n_out + t                               # (B, cap, L)
+    vals, loc = topk_min(s.reshape(B, cap * L), k)
+    idx = torch.gather(flat.reshape(B, cap * L), 1, loc)
+
+    # self-calibrated guard: the selected blocks' |pass-1 min - exact min|
+    # samples the pass-1 error of the unselected ones; 2x its per-context
+    # max plus the 1e-5 floor bounds it
+    exact_bmin = s.amin(dim=2)
+    err_obs = torch.where(torch.isfinite(mu_sorted) & (exact_bmin < 1e29),
+                          (mu_sorted - exact_bmin).abs(),
+                          torch.zeros_like(exact_bmin)).amax(dim=1)
+    guard = 2.0 * err_obs + 1e-5 * mu_cap.abs() + 1e-12
+    ok = torch.isinf(mu_cap) | (vals[:, -1] + guard < mu_cap)
+    return vals, idx, ok
+
+
+def two_pass_search(
+    y: torch.Tensor,
+    norms: torch.Tensor,
+    g: torch.Tensor,
+    k: int,
+    cap: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Exact k-smallest scores over all (trajectory, window start) pairs
+    through kernel 1; same return contract as :func:`pass2_from_bmin`."""
+    if g.shape[-1] > MAX_WIDTH:
+        raise ValueError(f"filter width {g.shape[-1]} > {MAX_WIDTH}")
+    return pass2_from_bmin(score_blockmin(y, norms, g), y, norms, g, k, cap)

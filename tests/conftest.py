@@ -60,6 +60,11 @@ jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_tests")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skips without one")
+
+
 @pytest.fixture()
 def rng():
     return np.random.default_rng(0)

@@ -1,0 +1,357 @@
+"""The port's modules against their JAX counterparts on the same numpy
+inputs (CPU), plus the port's import rules."""
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import shadowing_tpu as J
+import shadowing_tpu_torch as P
+from shadowing_tpu.ops import topk as jax_topk
+from shadowing_tpu.ops.sliding import sliding_dot as jax_sliding_dot
+from shadowing_tpu.pricing import black_scholes as jax_bs
+from shadowing_tpu.pricing import hedged_mc as jax_hmc
+from shadowing_tpu.shadow import embedding as jax_embedding
+from shadowing_tpu.shadow import engine as jax_engine
+from shadowing_tpu_torch.ops import topk as port_topk
+from shadowing_tpu_torch.ops.sliding import sliding_dot
+from shadowing_tpu_torch.pricing import black_scholes as port_bs
+from shadowing_tpu_torch.pricing import hedged_mc as port_hmc
+from shadowing_tpu_torch.shadow import embedding as port_embedding
+from shadowing_tpu_torch.shadow import engine as port_engine
+
+PKG = Path(P.__file__).resolve().parent
+RTOL = 1e-5
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def close(got, want, rtol=RTOL, atol=0.0):
+    np.testing.assert_allclose(P.as_numpy(got), np.asarray(want), rtol=rtol,
+                               atol=atol)
+
+
+# -- import rules -------------------------------------------------------------
+
+def test_port_never_imports_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|shadowing_tpu)(\.|\s|$)",
+                         re.M)
+    sources = [*PKG.rglob("*.py"), PKG.parent / "chip_smoke.py"]
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert not offenders
+    code = ("import sys, shadowing_tpu_torch, shadowing_tpu_torch.convert; "
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
+            "('jax.', 'shadowing_tpu.')) or m == 'shadowing_tpu']; "
+            "sys.exit(bool(bad))")
+    assert subprocess.run([sys.executable, "-c", code],
+                          cwd=PKG.parent).returncode == 0
+
+
+def test_cuda_device_is_never_replaced_by_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        P.PathShadowing(P.Identity(4), P.RelativeMSE(), np.zeros((2, 1, 9)),
+                        P.PredictionContext(2))
+
+
+def test_array_types(rng):
+    x = rng.normal(size=(5, 7))
+    assert P.dim_bct(x).shape == J.dim_bct(x).shape == (5, 1, 7)
+    assert P.dim_bct(x[0]).shape == (1, 1, 7)
+    with pytest.raises(ValueError):
+        P.dim_bct(np.zeros((1, 1, 1, 1)))
+    tx = P.array_types.as_torch_f32(x, "cpu")
+    assert tx.dtype == torch.float32 and tx.is_contiguous()
+    np.testing.assert_array_equal(P.as_numpy(tx), x.astype(np.float32))
+
+
+# -- embeddings, contexts, distances -----------------------------------------
+
+@pytest.mark.parametrize("name,args", [
+    ("Identity", (12,)),
+    ("Foveal", (1.15, 0.9, 40)),
+])
+def test_embedding(rng, name, args):
+    ej, ep = getattr(J, name)(*args), getattr(P, name)(*args)
+    np.testing.assert_array_equal(ep.kernel, ej.kernel)
+    assert (ep.dim, ep.width, ep.is_identity) == (ej.dim, ej.width,
+                                                  ej.is_identity)
+    x = rng.normal(0, 0.02, size=(3, 1, 90)).astype(np.float32)
+    close(ep.embed(x), ej.embed(x), atol=1e-9)
+    ctx = x[..., : ej.width]
+    close(ep.embed_context(ctx), ej.embed_context(ctx), atol=1e-9)
+    # the windowed form the engine rescores with agrees with the conv form
+    close(port_embedding.embed_windows(t(ctx), t(ep.kernel)),
+          jax_embedding.conv_embed(ctx, ej.kernel)[:, 0], atol=1e-9)
+    with pytest.raises(ValueError):
+        ep.embed_context(x[..., :5])
+
+
+@pytest.mark.parametrize("name,arg,C", [
+    ("PredictionContext", 7, 1),
+    ("PredictionContext", None, 1),
+    ("ImputationContext", (5, 3, 4), 1),
+    ("CrossChannelContext", 1, 2),
+])
+def test_context(rng, name, arg, C):
+    cj, cp = getattr(J, name)(arg), getattr(P, name)(arg)
+    kernel = rng.normal(size=(4, C - (name == "CrossChannelContext"), 9)
+                        ).astype(np.float32)
+    kj, nj = cj.conv_plan(kernel, 60)
+    kp, n_p = cp.conv_plan(kernel, 60)
+    np.testing.assert_array_equal(kp, kj)
+    assert n_p == nj and cp.get_out_times() == cj.get_out_times()
+    assert cp.out_channels() == cj.out_channels()
+    paths = rng.normal(size=(2, 3, C, 16)).astype(np.float32)
+    for sel in ("select_in_context", "select_out_context"):
+        want = np.asarray(getattr(cj, sel)(paths))
+        np.testing.assert_array_equal(getattr(cp, sel)(paths), want)
+        np.testing.assert_array_equal(getattr(cp, sel)(t(paths)).numpy(), want)
+    if name == "PredictionContext" and arg:
+        with pytest.raises(ValueError):
+            cp.conv_plan(kernel, 10)
+
+
+@pytest.mark.parametrize("name", ["RelativeMSE", "MSE", "CosineDistance"])
+def test_distance(rng, name):
+    dj, dp = getattr(J, name)(), getattr(P, name)()
+    assert dp.supports_expansion == dj.supports_expansion
+    assert dp.kernel_score_form == dj.pallas_score_form
+    x = rng.normal(size=(3, 1, 8)).astype(np.float32)
+    y = rng.normal(size=(1, 20, 8)).astype(np.float32)
+    close(dp.forward(t(x), t(y)), dj.forward(x, y))
+    close(dp.forward_host(x, y), dj.forward_host(x, y))
+    xn2 = (x ** 2).sum(-1)
+    cross = np.einsum("bcd,xnd->bn", x, y)[:, None]
+    yn2 = (y ** 2).sum(-1)
+    s_p = dp.score(t(xn2), t(cross), t(yn2))
+    close(s_p, dj.score(xn2, cross, yn2))
+    close(dp.finalize(t(xn2), s_p), dj.finalize(xn2, np.asarray(s_p)))
+
+
+def test_forward_topk_matches_jax_and_splits(rng):
+    x = rng.normal(size=(3, 6)).astype(np.float32)
+    y = rng.normal(size=(10, 7, 6)).astype(np.float32)
+    y[4] = y[1]                                        # exact ties
+    dist_p = P.RelativeMSE()
+    dj, ij = J.RelativeMSE().forward_topk(x, y, k=15, n_splits=1)
+    for n_splits in (1, 3, 10):
+        dp, ip = dist_p.forward_topk(x, y, k=15, n_splits=n_splits)
+        close(dp, dj)
+        np.testing.assert_array_equal(ip.numpy(), np.asarray(ij))
+
+
+# -- operators ----------------------------------------------------------------
+
+@pytest.mark.parametrize("C,w", [(1, 20), (2, 33)])
+def test_sliding_dot(rng, C, w):
+    y = rng.normal(0, 0.02, size=(5, C, 300)).astype(np.float32)
+    filt = rng.normal(size=(3, C, w)).astype(np.float32)
+    n_out = 300 - w + 1 - 7
+    import jax
+
+    want = np.asarray(jax_sliding_dot(jnp.asarray(y), jnp.asarray(filt),
+                                      n_out=n_out,
+                                      precision=jax.lax.Precision.HIGHEST))
+    # fp32 sums of C * w products in another order: outputs that cancel to
+    # near zero carry rounding of ~1e-7 of the output scale
+    close(sliding_dot(t(y), t(filt), n_out), want,
+          atol=1e-6 * np.abs(want).max())
+    with pytest.raises(ValueError):
+        sliding_dot(t(y), t(filt), 300)
+
+
+@pytest.mark.parametrize("emb", [J.Identity(16), J.Foveal(1.2, 0.8, 16)])
+@pytest.mark.parametrize("context", [None, (4, 3, 12)])
+def test_window_norms(rng, emb, context):
+    """Both the identity fast path (one sliding dot of y^2) and the general
+    d-channel path, with a gapped plan kernel for the imputation context."""
+    y = rng.normal(0, 0.02, size=(10, 1, 200)).astype(np.float32)
+    ctx_j = J.ImputationContext(context) if context else J.PredictionContext(5)
+    ctx_p = P.ImputationContext(context) if context else P.PredictionContext(5)
+    kernel, n_out = ctx_j.conv_plan(emb.kernel, 200)
+    diag = bool((np.count_nonzero(kernel.reshape(kernel.shape[0], -1),
+                                  axis=1) <= 1).all())
+    assert diag == isinstance(emb, J.Identity)
+    want = jax_engine._window_norms(jnp.asarray(y), jnp.asarray(kernel),
+                                    n_out=n_out, n_splits=3,
+                                    identity_fast=diag)
+    got = port_engine._window_norms(t(y), t(kernel), n_out, 3, diag)
+    close(got, want, atol=1e-9)
+    port_emb = P.Identity(16) if diag else P.Foveal(1.2, 0.8, 16)
+    eng = P.PathShadowing(port_emb, P.RelativeMSE(), y, ctx_p, device="cpu")
+    close(eng.window_norms(), want, atol=1e-9)
+
+
+def test_topk_lower_index_wins_ties(rng):
+    s = rng.integers(0, 6, size=(3, 40)).astype(np.float32)
+    vj, ij = jax_topk.topk_min_sort(jnp.asarray(s[0]), 10)[:2]
+    vp, ip = port_topk.topk_min(t(s), 10)
+    np.testing.assert_array_equal(ip[0].numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(vp[0].numpy(), np.asarray(vj))
+    with pytest.raises(ValueError):
+        port_topk.topk_min(t(s), 41)
+
+
+def test_merge_min_earlier_operand_wins_ties():
+    va = np.array([[1.0, 2.0, 2.0, 5.0]], np.float32)
+    ia = np.array([[10, 11, 12, 13]])
+    vb = np.array([[0.5, 2.0, 3.0, 5.0]], np.float32)
+    ib = np.array([[0, 1, 2, 3]])
+    vj, ij = jax_topk.merge_min(jnp.asarray(va), jnp.asarray(ia),
+                                jnp.asarray(vb), jnp.asarray(ib), 5)
+    vp, ip = port_topk.merge_min(t(va), t(ia), t(vb), t(ib), 5)
+    np.testing.assert_array_equal(ip.numpy(), np.asarray(ij))
+    np.testing.assert_array_equal(ip.numpy(), [[0, 10, 11, 12, 1]])
+    np.testing.assert_array_equal(vp.numpy(), np.asarray(vj))
+
+
+# -- statistics ---------------------------------------------------------------
+
+@pytest.mark.parametrize("proba", ["uniform", "softmax"])
+def test_proba(rng, proba):
+    d = rng.uniform(0, 1, size=(4, 30)).astype(np.float32)
+    v = rng.normal(size=(4, 30, 3)).astype(np.float32)
+    if proba == "uniform":
+        pj, pp = J.Uniform(), P.Uniform()
+    else:
+        pj, pp = J.Softmax(d[:, :, None], 0.3), P.Softmax(t(d)[:, :, None], 0.3)
+    close(pp.avg(t(v), axis=1), pj.avg(v, axis=1), atol=1e-7)
+    close(pp.std(t(v), axis=1), pj.std(v, axis=1), atol=1e-7)
+    close(pp.weights_like(t(v[..., 0]), axis=1),
+          pj.weights_like(v[..., 0], axis=1), atol=1e-9)
+    with pytest.raises(ValueError):
+        P.Softmax(d, 0.0)
+
+
+def test_realized(rng):
+    x = rng.normal(0, 0.01, size=(3, 5, 30)).astype(np.float32)
+    for vol in (False, True):
+        close(P.realized_variance(t(x), [5, 12, 30], vol=vol),
+              J.realized_variance(x, [5, 12, 30], vol=vol))
+    prices = 100 * np.exp(np.cumsum(x, -1)).astype(np.float32)
+    close(P.get_RV(t(prices)), J.get_RV(prices))
+    close(P.get_RV(t(x), from_dln=True), J.get_RV(x, from_dln=True))
+
+
+def test_bs_implied_vol_and_nan_mask():
+    # strikes where vega is meaningful: far in the wings a price ulp moves
+    # the implied vol by percents in either implementation
+    strikes = np.linspace(85, 115, 13).astype(np.float32)
+    taus = np.array([[0.25], [1.0]], np.float32)
+    prices = np.array(jax_bs.bs_call_price(100.0, strikes, taus, 0.25))
+    prices[0, :3] *= 0.5             # below intrinsic: no solution
+    prices[1, -1] = 99.0             # above the SIGMA_HI price
+    close(port_bs.bs_call_price(100.0, t(strikes), t(taus), 0.25),
+          jax_bs.bs_call_price(100.0, strikes, taus, 0.25), atol=1e-4)
+    want = np.asarray(jax_bs.bs_implied_vol(prices, 100.0, strikes, taus))
+    got = port_bs.bs_implied_vol(t(prices), 100.0, t(strikes), t(taus)).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert np.isnan(got).sum() >= 4
+    np.testing.assert_allclose(got[~np.isnan(got)], want[~np.isnan(want)],
+                               rtol=RTOL)
+
+
+def gbm(rng, n, T, sigma=0.2, tails=False):
+    dt = 1 / 252
+    z = rng.standard_t(4, size=(n, T)) if tails else rng.standard_normal((n, T))
+    z /= z.std()
+    return J.PriceData(dlnx=sigma * np.sqrt(dt) * z, x_init=100.0).x.astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("N,knots", [(256, "auto"), (2048, "auto"),
+                                     (512, "moment"), (2048, "empirical")])
+def test_hmc_prices_both_knot_branches(rng, N, knots):
+    """fp32 (2m x 2m) normal-equation solves: prices and vols at 1e-4."""
+    T = 20
+    x = gbm(rng, N, T, tails=True)
+    w = rng.uniform(0.5, 1.5, N).astype(np.float32)
+    w /= w.sum()
+    tau = T / 252
+    strikes = (100 * np.exp(np.linspace(-2, 2, 9) * 0.2 * np.sqrt(tau))
+               ).astype(np.float32)
+    want = np.asarray(jax_hmc._hmc_prices(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(strikes),
+        jnp.asarray(1.0, jnp.float32), n_basis=12, knots=knots))
+    got = port_hmc._hmc_prices(t(x), t(w), t(strikes), 1.0, 12, knots)
+    close(got, want, rtol=1e-4)
+    vj = np.asarray(jax_bs.bs_implied_vol(want, 100.0, strikes, tau))
+    vp = port_bs.bs_implied_vol(got, 100.0, t(strikes), tau).numpy()
+    np.testing.assert_array_equal(np.isnan(vp), np.isnan(vj))
+    np.testing.assert_allclose(vp[~np.isnan(vp)], vj[~np.isnan(vj)],
+                               rtol=1e-4)
+
+
+def test_compute_smile_and_batch(rng):
+    x = np.stack([gbm(rng, 300, 12, sigma=s) for s in (0.15, 0.3)])
+    w = rng.uniform(0.5, 1.5, size=(2, 300)).astype(np.float32)
+    Ts, Ms = [4, 12], np.linspace(-1.5, 1.5, 7)
+    sj = jax_hmc.compute_smile_batch(x, Ts, Ms, r=0.01, weights=w)
+    sp = P.compute_smile_batch(x, Ts, Ms, r=0.01, weights=w)
+    single = [P.compute_smile(x[0], Ts, Ms, r=0.01),
+              J.compute_smile(x[0], Ts, Ms, r=0.01)]
+    for a, b in [*zip(sp, sj), single]:
+        np.testing.assert_allclose(a.strikes, b.strikes, rtol=RTOL)
+        np.testing.assert_allclose(a.sigma_ref, b.sigma_ref, rtol=RTOL)
+        np.testing.assert_allclose(a.prices, b.prices, rtol=1e-4, atol=1e-6)
+        np.testing.assert_array_equal(np.isnan(a.vols), np.isnan(b.vols))
+        np.testing.assert_allclose(a.vols, b.vols, rtol=1e-4)
+        assert a.spot == pytest.approx(b.spot)
+    import matplotlib
+
+    matplotlib.use("Agg")
+    assert len(sp[0].plot(legend=True).lines) == len(Ts)
+    with pytest.raises(ValueError, match="initial price"):
+        bad = x.copy()
+        bad[0, 3, 0] *= 1.5
+        P.compute_smile_batch(bad, [4], [0.0])
+    with pytest.raises(ValueError):
+        P.compute_smile(x[0], [50], [0.0])
+
+
+# -- data ---------------------------------------------------------------------
+
+def test_spdaily_and_price_data():
+    full_j, full_p = J.SPDaily(), P.SPDaily()
+    np.testing.assert_array_equal(full_p.dlnx, full_j.dlnx)
+    np.testing.assert_array_equal(full_p.x, full_j.x)
+    np.testing.assert_array_equal(full_p.dts,
+                                  np.asarray(full_j.dts, "datetime64[D]"))
+    cut_j = J.SPDaily(start="03-01-2000", end="31-12-2014")
+    cut_p = P.SPDaily(start="03-01-2000", end="31-12-2014")
+    np.testing.assert_array_equal(cut_p.x, cut_j.x)
+    with pytest.raises(ValueError):
+        P.SPDaily(start="01-01-2100")
+    dl = np.random.default_rng(0).normal(0, 0.01, size=(2, 9))
+    for key in ("dlnx", "dx"):
+        a, b = P.PriceData(**{key: dl}, x_init=50.0), J.PriceData(
+            **{key: dl}, x_init=50.0)
+        for rep in ("x", "lnx", "dx", "dlnx"):
+            np.testing.assert_allclose(getattr(a, rep), getattr(b, rep))
+    with pytest.raises(ValueError):
+        P.PriceData(x=np.ones(3), dx=np.ones(2))
+
+
+def test_time_series_dataset(tmp_path, rng):
+    src = tmp_path / "src"
+    src.mkdir()
+    for i in range(5):
+        np.save(src / f"s{i}.npy", rng.normal(size=(3, 40)).astype(np.float32))
+    out_j, out_p = tmp_path / "j", tmp_path / "p"
+    J.batch_npy_files(src, 2, out_j)
+    written = P.batch_npy_files(src, 2, out_p)
+    assert [p.name for p in written] == sorted(p.name for p in out_j.iterdir())
+    for R in (None, 7):
+        np.testing.assert_array_equal(P.TimeSeriesDataset(out_p, R=R).load(),
+                                      J.TimeSeriesDataset(out_j, R=R).load())
+    with pytest.raises(ValueError):
+        P.TimeSeriesDataset(out_p, R=100).load()
