@@ -19,12 +19,23 @@ drives the main path at the README workflow scale (32,768 trajectories x
 5. 64 contexts: ``predict`` through the factored kernel, checked against
    the Toeplitz kernel's route and the direct oracle;
 6. the redo path: a forced pass-2 certification failure must still
-   return the certified winners of phase 4.
+   return the certified winners of phase 4;
+7. the fused route: cosine (Identity(20)) and RelativeMSE over a
+   ``Foveal(1.15, 0.9, 400)`` filter wider than ``MAX_WIDTH``, B = 1 and 64,
+   against the on-card direct oracle; the sort-based selection's time at
+   k = 10,000 and 16,384 of 1.3 million;
+8. ``exact_dtype="float64"``: distances equal a numpy float64 rescore;
+9. ``shadow_sharded_rows`` over the two row halves equals one engine;
+10. an MRW dataset (32,768 x 4,097 log-prices) generated on the card;
+11. ``rolling_backtest`` on its returns with the AR-linear benchmark:
+    2,048 dates at k = 1,024 and 256 dates at k = 16,384, in 64-date
+    chunks through K2, two dates held against the direct oracle;
+12. 4,096 ``PDVModelDiscrete`` paths of 4,096 daily steps on the card.
 
 Every check raises on failure. The line before the last is a JSON object
-of the kernels' launch counts on the main path, errors and times; the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device the script
-exits non-zero and prints no result.
+of the kernels' launch counts summed over every path, errors and times;
+the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
+the script exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -41,6 +52,15 @@ W, H, K = 20, 20, 1024        # context width, horizon, winners per context
 TS = [5, 10, 20]
 MS = np.linspace(-2, 2, 9)
 TOL = 1e-5                    # kernel vs plain: max abs error / max |score|
+#: tests/test_fuzz.py's float32 tie window: ids may differ only between
+#: ranks closer than this (absolute + relative) or this close to the k-th
+TIE_ATOL, TIE_RTOL = 1e-6, 1e-5
+W_WIDE = 400                  # Foveal(1.15, 0.9, 400): wider than MAX_WIDTH
+SEL_N, SEL_KS = 1_300_000, (10_000, 16_384)   # selection timing
+N_DATES, N_DATES_BIG, K_BIG = 2048, 256, 16384  # bench.py's backtest shapes
+PDV_S, PDV_STEPS = 4096, 4096
+PDV_PARAMS = dict(lams1=[55.0, 10.0], lams2=[20.0, 3.0], thetas=[0.25, 0.5],
+                  betas=[0.04, -0.12, 0.75])
 
 
 def log(msg: str) -> None:
@@ -303,6 +323,347 @@ def main_path(dataset, device) -> dict:
             "predict64_warm_s": warm64, "e_build_s": e_build}
 
 
+# --------------------------------------------------------------------------
+# phases 7-12: the routes, generators and workflow of the second slice
+# --------------------------------------------------------------------------
+
+def agree_up_to_ties(d_a, i_a, d_b, i_b) -> bool:
+    """Winner ids agree rank for rank, except at ranks whose distance lies
+    within the float32 tie window of a neighbour's or of the k-th one."""
+    for da, db, ia, ib in zip(d_a, d_b, i_a, i_b):
+        taint = np.zeros(len(da), bool)
+        for d in (da, db):
+            win = TIE_ATOL + TIE_RTOL * np.abs(d)
+            tight = np.abs(np.diff(d)) <= win[1:]
+            taint[:-1] |= tight
+            taint[1:] |= tight
+            taint |= np.abs(d - d[-1]) <= win[-1]
+        if not ((ia == ib).all(-1) | taint).all():
+            return False
+    return True
+
+
+def first_and_warm(fn, n: int = 3):
+    """First-call wall time and the median of ``n`` warm ones (each ends
+    in a synchronize), plus the first call's result."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    return out, first, median_wall(fn, n)
+
+
+def dataset_contexts(dataset, w: int, n: int, seed: int) -> np.ndarray:
+    """``n`` windows of width ``w`` cut from the dataset, ``(n, 1, w)``."""
+    rng = np.random.default_rng(seed)
+    Rn, _, Tn = dataset.shape
+    rows, starts = rng.integers(0, Rn, n), rng.integers(0, Tn - w - H, n)
+    return np.stack([dataset[r, :, s : s + w] for r, s in zip(rows, starts)])
+
+
+class Launches:
+    """K1/K2 launch counts of one driven path: zeroed on entry, read on
+    exit, summed over every path into ``totals``."""
+
+    totals = {"K1": 0, "K2": 0}
+
+    def __enter__(self):
+        from shadowing_tpu_torch.ops.factored import FACTORED
+        from shadowing_tpu_torch.ops.search import TOEPLITZ
+
+        self.kernels = {"K1": TOEPLITZ, "K2": FACTORED}
+        for k in self.kernels.values():
+            k.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        self.counts = {n: k.launches for n, k in self.kernels.items()}
+        for n, c in self.counts.items():
+            Launches.totals[n] += c
+        return False
+
+    def require(self, name: str, what: str) -> None:
+        if self.counts[name] == 0:
+            raise AssertionError(f"{what} never launched {name}")
+
+
+def fused_route(dataset, device) -> None:
+    """Phase 7: the fused route at full width — cosine (no kernel score
+    form) and a Foveal filter wider than ``MAX_WIDTH`` — against the
+    on-card direct oracle, and the cost of its sort-based selection."""
+    import torch
+
+    from shadowing_tpu_torch import (
+        CosineDistance,
+        Foveal,
+        Identity,
+        PathShadowing,
+        PredictionContext,
+        RelativeMSE,
+        SPDaily,
+    )
+    from shadowing_tpu_torch.ops.topk import topk_min
+
+    snp = SPDaily().dlnx[0, 0].astype(np.float32)
+    res = {}
+    for label, emb, dist, w in (
+            ("cosine Identity(20)", Identity(W), CosineDistance(), W),
+            (f"RelativeMSE Foveal(1.15, 0.9, {W_WIDE})",
+             Foveal(1.15, 0.9, W_WIDE), RelativeMSE(), W_WIDE)):
+        eng = PathShadowing(emb, dist, dataset, PredictionContext(H),
+                            device=device)
+        ctx64 = np.concatenate([dataset_contexts(dataset, w, 63, seed=1),
+                                snp[None, None, -w:]])
+        for B in (1, 64):
+            with Launches() as ran:
+                (d, _, i), first, warm = first_and_warm(
+                    lambda: eng.shadow(ctx64[-B:], k=K))
+            if eng.last_metrics["method"] != "fused" or any(ran.counts.values()):
+                raise AssertionError(f"{label} B={B}: {eng.last_metrics}, "
+                                     f"launches {ran.counts}")
+            log(f"phase 7 fused {label} (d={emb.dim}) B={B}, k={K}: first "
+                f"call {first:.3f} s, warm {warm:.4f} s (median of 3), "
+                f"n_splits {eng.last_metrics['n_splits']}")
+            res[f"{label} B={B}"] = warm
+        d_o, _, i_o = eng.shadow(ctx64[-2:], k=K, method="direct")
+        if not agree_up_to_ties(d[-2:], i[-2:], d_o, i_o):
+            raise AssertionError(f"{label}: fused ids differ from the direct "
+                                 "oracle's outside the f32 tie window")
+        same = int((i[-2:] == i_o).all(-1).sum())
+        log(f"  checks: routing_log {[s for s in eng.routing_log if 'declined' in s]}; "
+            f"2x{K} ids equal the direct oracle's ({same} rank for rank, the "
+            f"rest inside the f32 tie window)")
+        del eng
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    for B in (1, 64):
+        s = torch.rand((B, SEL_N), generator=gen, device=device)
+        for k in SEL_KS:
+            ms = median_ms(lambda: topk_min(s, k))
+            ms_topk = median_ms(lambda: torch.topk(s, k, largest=False))
+            log(f"  selection B={B}, k={k} of {SEL_N}: topk_min (stable sort) "
+                f"{ms:.3f} ms, torch.topk {ms_topk:.3f} ms")
+        del s
+
+
+def float64_route(dataset, device) -> None:
+    """Phase 8: the float64 host rescore of the K1 route's winners."""
+    from shadowing_tpu_torch import (
+        Identity,
+        PathShadowing,
+        PredictionContext,
+        RelativeMSE,
+        SPDaily,
+    )
+
+    ctx = SPDaily().dlnx[0, 0, -W:].astype(np.float32)
+    eng = PathShadowing(Identity(W), RelativeMSE(), dataset,
+                        PredictionContext(H), device=device)
+    eng.shadow(ctx, k=K)
+    with Launches() as ran:
+        d, p, i = eng.shadow(ctx, k=K, exact_dtype="float64")
+    ran.require("K1", "the float64 route")
+    t32 = median_wall(lambda: eng.shadow(ctx, k=K), 3)
+    t64 = median_wall(lambda: eng.shadow(ctx, k=K, exact_dtype="float64"), 3)
+    d32, _, i32 = eng.shadow(ctx, k=K)
+    x = ctx.astype(np.float64)
+    e = p[..., :W].astype(np.float64)[:, :, 0]
+    d_ref = np.linalg.norm(e - x, axis=-1) / np.linalg.norm(x)
+    rel = float(np.abs(d - d_ref).max() / np.abs(d_ref).max())
+    if d.dtype != np.float64 or rel > 1e-12 or not (np.diff(d) >= 0).all():
+        raise AssertionError(f"float64 distances: rel err {rel}")
+    if set(map(tuple, i[0])) != set(map(tuple, i32[0])) or not \
+            agree_up_to_ties(d, i, d32, i32):
+        raise AssertionError("float64 ids differ from the float32 route's "
+                             "beyond reordering among f32 ties")
+    log(f"phase 8 float64 (B=1, k={K}): shadow warm {t32:.4f} s float32, "
+        f"{t64:.4f} s float64 (median of 3); K1 launches {ran.counts['K1']}; "
+        f"max rel err vs numpy float64 {rel:.2e}; ids = the float32 route's "
+        f"({int((i == i32).all(-1).sum())}/{K} rank for rank)")
+
+
+def sharded_rows(dataset, device) -> None:
+    """Phase 9: two engines on the row halves searched as one dataset."""
+    import torch
+
+    from shadowing_tpu_torch import (
+        Identity,
+        PathShadowing,
+        PredictionContext,
+        RelativeMSE,
+        shadow_sharded_rows,
+    )
+
+    ctx64 = dataset_contexts(dataset, W, 64, seed=3)
+    mk = lambda a: PathShadowing(Identity(W), RelativeMSE(), a,
+                                 PredictionContext(H), device=device)
+    half = dataset.shape[0] // 2
+    with Launches() as ran:
+        engines = [mk(dataset[:half]), mk(dataset[half:])]
+        d, p, i = shadow_sharded_rows(engines, ctx64, k=K)
+    ran.require("K2", "shadow_sharded_rows at B=64")
+    del engines
+    torch.cuda.empty_cache()
+    with Launches():
+        d1, p1, i1 = mk(dataset).shadow(ctx64, k=K)
+    if not (np.array_equal(i, i1) and np.array_equal(d, d1)
+            and np.array_equal(p, p1)):
+        raise AssertionError("shadow_sharded_rows differs from one engine")
+    log(f"phase 9 shadow_sharded_rows (2 engines of {half} rows, B=64, "
+        f"k={K}): ids, distances and paths equal one engine's; launches "
+        f"{ran.counts}, trajectory ids span {int(i[..., 0].min())}.."
+        f"{int(i[..., 0].max())}")
+    torch.cuda.empty_cache()
+
+
+def mrw_dataset(device):
+    """Phase 10: an MRW dataset generated on the card; returns its
+    log-returns ``(R, 1, T)``."""
+    import torch
+
+    from shadowing_tpu_torch import MRWGenerator
+
+    gen = MRWGenerator(T=T + 1, H=0.5, lam=0.2, seed=0, device=device)
+    t0 = time.perf_counter()
+    lnx = gen.generate(R)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    t_warm = median_wall(lambda: gen.generate(R), 1)
+    returns = torch.diff(lnx, dim=-1)
+    std = float(returns.std())
+    if (lnx.shape != (R, 1, T + 1) or lnx.device.type != gen.device.type
+            or not (lnx[:, :, 0] == 0).all() or abs(std / gen.sigma - 1) >= 0.1
+            or not torch.isfinite(returns).all()):
+        raise AssertionError(f"MRW: shape {tuple(lnx.shape)}, increment std "
+                             f"{std} vs sigma {gen.sigma}")
+    log(f"phase 10 MRW generate(R={R}, T={T + 1}) on the card: first {dt:.3f} s "
+        f"({R / dt:.0f} paths/s), warm {t_warm:.3f} s ({R / t_warm:.0f} "
+        f"paths/s); increment std {std:.5f} = {std / gen.sigma:.4f} sigma")
+    return returns
+
+
+def device_busy(trace: Path) -> tuple:
+    """Device busy seconds (the union of the kernels' intervals) of a
+    Chrome trace, and the top kernels by summed time."""
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") == "kernel"]
+    busy, end, by_name = 0.0, float("-inf"), {}
+    for e in sorted(events, key=lambda e: e["ts"]):
+        stop = e["ts"] + e["dur"]
+        if stop > end:
+            busy += stop - max(e["ts"], end)
+            end = stop
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + e["dur"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:4]
+    return busy / 1e6, len(events), [(n, round(t / 1e3, 3)) for n, t in top]
+
+
+def backtest(returns, device) -> None:
+    """Phase 11: the rolling backtest over the MRW dataset, against the
+    AR-linear benchmark, at k = 1,024 and 16,384."""
+    import torch
+
+    from shadowing_tpu_torch import (
+        Identity,
+        PathShadowing,
+        PredictionContext,
+        RelativeMSE,
+        SPDaily,
+        realized_variance,
+        rolling_backtest,
+        windows,
+    )
+    from shadowing_tpu_torch.ops import factored
+    from shadowing_tpu_torch.utils.profiling import device_trace
+
+    eng = PathShadowing(Identity(W), RelativeMSE(), returns,
+                        PredictionContext(H), device=device)
+    snp = SPDaily().dlnx[0, 0]
+    for k, n_dates in ((K, N_DATES), (K_BIG, N_DATES_BIG)):
+        series = snp[-(n_dates + W + H - 1):]
+        run = lambda: rolling_backtest(eng, series, w=W, Ts=TS, k=k,
+                                       n_context_splits=n_dates // 64,
+                                       benchmark="ar-linear")
+        torch.cuda.reset_peak_memory_stats()
+        with Launches() as ran:
+            res, first, warm = first_and_warm(run)
+        ran.require("K2", f"the backtest at k={k}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if not (res.predicted.shape == (n_dates, len(TS))
+                and np.isfinite(res.predicted).all()
+                and np.isfinite(res.benchmark_predicted).all()):
+            raise AssertionError(f"backtest k={k}: non-finite predictions")
+        ctx = windows(series, w=W + max(TS), s=1)[:, :W]
+        pick = [0, n_dates - 1]
+        to_predict = lambda x: realized_variance(x[:, :, 0, :], Ts=TS)
+        want, _ = eng.predict(ctx[pick], k=k, to_predict=to_predict, eta=0.1,
+                              method="direct")
+        rel = float(np.abs(res.predicted[pick] / want - 1).max())
+        if rel > 1e-6:
+            raise AssertionError(f"backtest k={k}: dates {pick} differ from "
+                                 f"the direct oracle by {rel:.2e}")
+        log(f"phase 11 rolling_backtest ({n_dates} dates, k={k}, 64-date "
+            f"chunks, ar-linear): first call {first:.3f} s "
+            f"({n_dates / first:.0f} dates/s), warm {warm:.4f} s "
+            f"({n_dates / warm:.0f} dates/s, median of 3); launches "
+            f"{ran.counts}; peak allocated {peak:.2f} GiB; dates {pick} = "
+            f"direct oracle to {rel:.1e}")
+        log("  " + res.summary().replace("\n", "\n  "))
+        if k == K:
+            # the profiler's own host overhead inflates the traced wall:
+            # the busy share is taken of the unprofiled warm wall
+            trace_dir = Path(__file__).resolve().parent / "build" / "traces"
+            with device_trace(str(trace_dir)):
+                run()
+                torch.cuda.synchronize()
+            busy, n_kernels, top = device_busy(trace_dir / "trace.json")
+            log(f"  profiled warm run (torch.profiler): device busy "
+                f"{busy:.3f} s = {100 * busy / warm:.1f} % of the unprofiled "
+                f"warm wall, {n_kernels} kernels; top by device ms: {top}")
+
+    # a 65-context chunk (the default n_dates // 64 splits of 130 dates)
+    E, norms = eng.factored_responses(), eng.window_norms()
+    x = torch.randn((65, W), generator=torch.Generator(device=device)
+                    .manual_seed(0), device=device) * 0.011
+    t64 = median_ms(lambda: factored.score_blockmin_factored(E, norms, x[:64]))
+    t65 = median_ms(lambda: factored.score_blockmin_factored(E, norms, x))
+    log(f"  K2 pass 1 at B=64 {t64:.3f} ms vs B=65 {t65:.3f} ms")
+
+
+def pdv_paths(device) -> None:
+    """Phase 12: 4,096 PDV paths of 4,096 daily steps on the card."""
+    import torch
+
+    from shadowing_tpu_torch import PDVModelDiscrete
+    from shadowing_tpu_torch.models.pdv import SIGMA_CLIP
+
+    m = PDVModelDiscrete(**PDV_PARAMS, device=device)
+    kw = dict(T=PDV_STEPS / 252, dt=1 / 252, S0=100.0, S=PDV_S,
+              R10=np.zeros(2), R20=np.full(2, 0.04))
+    (sigma, S), first, warm = first_and_warm(lambda: m.gen(**kw), n=1)
+    if not (S.shape == sigma.shape == (PDV_S, PDV_STEPS)
+            and (S[:, 0] == 100.0).all() and (S > 0).all()
+            and (sigma >= SIGMA_CLIP[0]).all() and (sigma <= SIGMA_CLIP[1]).all()):
+        raise AssertionError(f"PDV: shape {S.shape}, min price {S.min()}")
+    calm1 = torch.zeros((1, 2), device=device)
+    calm2 = torch.full((1, 2), 0.02, device=device)
+    lam1 = torch.tensor(m.lams1, dtype=torch.float32, device=device)
+    lam2 = torch.tensor(m.lams2, dtype=torch.float32, device=device)
+    crash1 = torch.exp(-lam1 / 252) * calm1 + lam1 * -0.10
+    crash2 = torch.exp(-lam2 / 252) * calm2 + lam2 * 0.01
+    s_calm, s_crash = float(m.sigma_of(calm1, calm2)), float(m.sigma_of(crash1, crash2))
+    if not s_crash > 1.5 * s_calm:
+        raise AssertionError(f"leverage: sigma {s_calm} -> {s_crash}")
+    log(f"phase 12 PDVModelDiscrete.gen(S={PDV_S}, {PDV_STEPS} steps) on the "
+        f"card: first call {first:.3f} s, warm {warm:.3f} s; prices in "
+        f"[{S.min():.2f}, {S.max():.2f}], sigma in [{sigma.min():.4f}, "
+        f"{sigma.max():.4f}]; leverage: a -10% day moves sigma "
+        f"{s_calm:.4f} -> {s_crash:.4f}")
+
+
 def main() -> int:
     import torch
 
@@ -337,15 +698,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     path = main_path(dataset, device)
+    torch.cuda.empty_cache()
+    fused_route(dataset, device)
+    float64_route(dataset, device)
+    sharded_rows(dataset, device)
+    del dataset
+    torch.cuda.empty_cache()
+    backtest(mrw_dataset(device), device)
+    torch.cuda.empty_cache()
+    pdv_paths(device)
+    launches = {n: path[n] + Launches.totals[n] for n in ("K1", "K2")}
+    log(f"launches over every path: {launches} (phases 4-6 {path['K1']} K1, "
+        f"{path['K2']} K2; phases 7-12 {Launches.totals})")
     kernels = [
         {"name": "blockmin_toeplitz", "route": "cuda",
          "source": "shadowing_tpu_torch/csrc/blockmin_toeplitz.cu",
          "replaces": "shadowing_tpu/ops/pallas_search.py:209",
-         "launches": path["K1"], **res["K1"]},
+         "launches": launches["K1"], **res["K1"]},
         {"name": "blockmin_factored", "route": "cuda",
          "source": "shadowing_tpu_torch/csrc/blockmin_factored.cu",
          "replaces": "shadowing_tpu/ops/pallas_factored.py:174",
-         "launches": path["K2"], **res["K2"]},
+         "launches": launches["K2"], **res["K2"]},
     ]
     log(card)
     print(json.dumps({"kernels": kernels}))

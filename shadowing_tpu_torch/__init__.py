@@ -15,6 +15,7 @@ from shadowing_tpu_torch.data import (
     SPDaily,
     TimeSeriesDataset,
     batch_npy_files,
+    windows,
 )
 from shadowing_tpu_torch.pricing.hedged_mc import (
     Smile,
@@ -37,6 +38,33 @@ from shadowing_tpu_torch.shadow.embedding import Foveal, Identity, PathEmbedding
 from shadowing_tpu_torch.shadow.engine import PathShadowing
 from shadowing_tpu_torch.stats.proba import DiscreteProba, Softmax, Uniform
 from shadowing_tpu_torch.stats.realized import get_RV, realized_variance
+
+_LAZY = {
+    # workflows
+    "rolling_backtest": "shadowing_tpu_torch.backtest",
+    "BacktestResult": "shadowing_tpu_torch.backtest",
+    "shadow_sharded_rows": "shadowing_tpu_torch.shadow.engine",
+    # generators
+    "MRWGenerator": "shadowing_tpu_torch.models.mrw",
+    "PDVModel": "shadowing_tpu_torch.models.pdv",
+    "PDVModelDiscrete": "shadowing_tpu_torch.models.pdv",
+    "AutoregressiveLinearPredictor": "shadowing_tpu_torch.models.pdv",
+    "compute_factor": "shadowing_tpu_torch.models.pdv",
+    "future_pdv_model": "shadowing_tpu_torch.models.pdv",
+    "kernel_exp": "shadowing_tpu_torch.models.pdv",
+    "kernel_pl": "shadowing_tpu_torch.models.pdv",
+    "DEFAULT1": "shadowing_tpu_torch.models.pdv",
+    "DEFAULT2": "shadowing_tpu_torch.models.pdv",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "Array",
@@ -67,4 +95,6 @@ __all__ = [
     "from_numpy_state",
     "get_RV",
     "realized_variance",
+    "windows",
+    *_LAZY,
 ]

@@ -12,10 +12,13 @@ certification is redone at an escalated cap, then by the literal
 returned distances carry no expansion round-off, and are returned in the
 canonical (distance, flat id) order.
 
-Routes (``method=``): ``"auto"``, ``"kernel"`` (the JAX ``"pallas"``
-route) and ``"direct"``. The device is explicit: ``device="cuda"`` is the
-default and raises when there is no card; ``device="cpu"`` runs the
-kernels' plain PyTorch versions.
+Routes (``method=``): ``"kernel"`` (the JAX ``"pallas"`` route), ``"fused"``
+(row chunks of the fp32 cross term, the distance's own selection score and
+an exact sort-based top-k: any expansion distance, any filter width),
+``"direct"`` (the literal oracle) and ``"auto"``, which takes the first of
+kernel, fused, direct that applies. The device is explicit:
+``device="cuda"`` is the default and raises when there is no card;
+``device="cpu"`` runs the kernels' plain PyTorch versions.
 """
 from __future__ import annotations
 
@@ -45,7 +48,7 @@ from shadowing_tpu_torch.shadow.distance import PathDistance
 from shadowing_tpu_torch.shadow.embedding import PathEmbedding, embed_windows
 from shadowing_tpu_torch.stats.proba import DiscreteProba, Softmax, Uniform
 
-METHODS = ("auto", "kernel", "direct")
+METHODS = ("auto", "kernel", "fused", "direct")
 #: bytes of device memory kept free for temporaries beside resident E
 _HEADROOM = 2 << 30
 #: budget for intermediates on the CPU (no device query there)
@@ -126,16 +129,44 @@ def _direct_search(y: torch.Tensor, x_emb: torch.Tensor, kernel: torch.Tensor,
     return i_run
 
 
+# --------------------------------------------------------------------------
+# fused search: combined-filter cross term + exact top-k, row chunks
+# --------------------------------------------------------------------------
+
+def _fused_search(y: torch.Tensor, norms: torch.Tensor, g: torch.Tensor,
+                  x_norm2: torch.Tensor, k: int, n_out: int, n_splits: int,
+                  distance: PathDistance) -> torch.Tensor:
+    """Cross terms ``y ⋆ g_b`` of a row chunk (fp32 ``conv1d``), the
+    distance's selection score, the chunk's exact k smallest (stable sort:
+    lower flat id first on ties) and an exact running merge. Rows are never
+    padded: the last chunk is just shorter. Returns int64 flat ids
+    ``(B, k)``."""
+    R = y.shape[0]
+    B = g.shape[0]
+    chunk = -(-R // n_splits)
+    d_run = torch.full((B, k), float("inf"), device=y.device)
+    i_run = torch.full((B, k), torch.iinfo(torch.int64).max,
+                       dtype=torch.int64, device=y.device)
+    for r0 in range(0, R, chunk):
+        cross = sliding_dot(y[r0 : r0 + chunk], g, n_out).transpose(0, 1)
+        s = distance.score(x_norm2[:, None, None], cross,
+                           norms[None, r0 : r0 + chunk]).reshape(B, -1)
+        vals, idx = topk_min(s, min(k, s.shape[1]))
+        d_run, i_run = merge_min(d_run, i_run, vals, idx + r0 * n_out, k)
+    return i_run
+
+
 def _prep_context(x_context: torch.Tensor, raw_kernel: torch.Tensor,
                   plan_kernel: torch.Tensor):
-    """Context embeddings ``(B, d)`` and the combined filters ``g (B, C,
-    w')`` over the context-adjusted plan kernel. The context embeds with
-    the same reduction as the rescored winners, so a window equal to the
-    context rescores to exactly 0.0."""
+    """Context embeddings ``(B, d)``, their squared norms ``(B,)`` and the
+    combined filters ``g (B, C, w')`` over the context-adjusted plan kernel.
+    The context embeds with the same reduction as the rescored winners, so
+    a window equal to the context rescores to exactly 0.0."""
     x_emb = embed_windows(x_context, raw_kernel)
+    x_norm2 = (x_emb * x_emb).sum(dim=-1)
     with fp32_exact():
         g = torch.einsum("bd,dcw->bcw", x_emb, plan_kernel)
-    return x_emb, g
+    return x_emb, x_norm2, g
 
 
 # --------------------------------------------------------------------------
@@ -300,11 +331,17 @@ class PathShadowing:
             )
         return kernel, n_out
 
-    def _auto_splits(self, B: int, n_out: int, d: int) -> int:
-        """Row chunks for the direct oracle: per window it holds the
-        embedding (d), the broadcast difference (B * d), the distances and
-        their sort (values plus int64 ids, twice)."""
-        per_row = 4 * n_out * (d + B * (d + 8))
+    def _auto_splits(self, B: int, n_out: int, d: int,
+                     method: str = "direct") -> int:
+        """Row chunks for the fused route and the direct oracle. Per window
+        the direct oracle holds the embedding (d), the broadcast difference
+        (B * d), the distances and their sort (values plus int64 ids,
+        twice); the fused route holds no embedding, only the cross term and
+        the scores (2 per context) and the sort (6 per context)."""
+        if method == "fused":
+            per_row = 4 * n_out * (1 + 8 * B)
+        else:
+            per_row = 4 * n_out * (d + B * (d + 8))
         return max(1, -(-self.R * per_row // _memory_budget(self.device)))
 
     def _kernel_ok(self, kernel: np.ndarray) -> bool:
@@ -384,7 +421,7 @@ class PathShadowing:
         w + out_times), idces (B, k, 2), n_redo)`` on the device."""
         if method not in METHODS:
             raise ValueError(
-                f"unknown or not yet ported method {method!r}; the port has "
+                f"unknown method {method!r}; the methods are "
                 f"{', '.join(repr(m) for m in METHODS)}")
         x = as_torch_f32(_contexts(x_context), self.device)
         if x.shape[-1] != self.embedding.width:
@@ -399,14 +436,22 @@ class PathShadowing:
             raise ValueError(f"k={k} must be in [1, {n_candidates}] "
                              f"(= R * valid window starts)")
         if method == "auto":
-            method = "kernel" if self._kernel_ok(kernel) else "direct"
+            if self._kernel_ok(kernel):
+                method = "kernel"
+            else:
+                method = ("fused" if self.distance.supports_expansion
+                          else "direct")
         elif method == "kernel" and not self._kernel_ok(kernel):
             raise ValueError(
                 "the kernel search requires an expansion distance with the "
                 "norm2 - 2*cross score form and a filter width <= "
                 f"{search_ops.MAX_WIDTH}")
+        elif method == "fused" and not self.distance.supports_expansion:
+            raise ValueError(
+                f"the fused search requires an expansion distance; "
+                f"{type(self.distance).__name__} has none")
         if n_splits is None:
-            n_splits = self._auto_splits(B, n_out, d)
+            n_splits = self._auto_splits(B, n_out, d, method)
         # each chunk holds at least k candidates: any n_splits returns the
         # same result
         n_splits = max(1, min(n_splits, n_candidates // k))
@@ -418,7 +463,7 @@ class PathShadowing:
         y = self.y
         kernel_t = self._tensor(kernel)
         raw_kernel = self._tensor(self.embedding.kernel)
-        x_emb, g = _prep_context(x, raw_kernel, kernel_t)
+        x_emb, x_norm2, g = _prep_context(x, raw_kernel, kernel_t)
         escalate = None
 
         if method == "kernel":
@@ -450,8 +495,13 @@ class PathShadowing:
                     self._cap_memo[(B, k)] = esc_cap
                 return search_ops.two_pass_search(y, norms, g, k, esc_cap)
         else:
-            flat_idx = _direct_search(y, x_emb, kernel_t, k, n_out, n_splits,
-                                      self.distance)
+            # both selections are sort-exact: nothing to certify or redo
+            if method == "fused":
+                flat_idx = _fused_search(y, self.window_norms(), g, x_norm2,
+                                         k, n_out, n_splits, self.distance)
+            else:
+                flat_idx = _direct_search(y, x_emb, kernel_t, k, n_out,
+                                          n_splits, self.distance)
             ok = torch.ones((B,), dtype=torch.bool, device=y.device)
 
         rows = torch.nonzero(~ok).flatten()
@@ -496,24 +546,49 @@ class PathShadowing:
 
         :param x_context: ``(B, C, w)`` contexts (1-d/2-d coerced)
         :param k: number of closest paths to keep
-        :param n_splits: dataset chunks of the direct oracle (``None``:
-            sized from the memory budget); results do not depend on it
-        :param method: ``"kernel"``, ``"direct"`` or ``"auto"``
+        :param n_splits: dataset chunks of the fused route and the direct
+            oracle (``None``: sized from the memory budget); results do not
+            depend on it
+        :param method: ``"kernel"``, ``"fused"``, ``"direct"`` or ``"auto"``
+        :param exact_dtype: ``"float64"`` rescores the k winners on the host
+            in double precision (selection stays float32 on the device) and
+            re-sorts them, stably, so returned distances match a float64
+            oracle to ~1e-15
         :return: distances ``(B, k)`` ascending, paths
             ``(B, k, C, w + out_times)``, indices ``(B, k, 2)`` as
             ``(trajectory, window start)``
         """
         del cuda
-        if exact_dtype != "float32":
-            raise ValueError(f"exact_dtype={exact_dtype!r} is not ported; the "
-                             "port rescores in float32")
+        if exact_dtype not in ("float32", "float64"):
+            raise ValueError(f"exact_dtype must be float32/float64, got "
+                             f"{exact_dtype!r}")
         t0 = time.perf_counter()
         dists, paths, idces, n_redo = self._search(x_context, k, n_splits,
                                                    method)
         out = as_numpy(dists), as_numpy(paths), as_numpy(idces)
+        if exact_dtype == "float64":
+            out = self._rescore_host_f64(x_context, out[1], out[2])
         self._record_metrics("shadow", t0, B=len(out[0]), k=k,
-                             redo_contexts=n_redo)
+                             redo_contexts=n_redo, exact_dtype=exact_dtype)
         return out
+
+    def _rescore_host_f64(self, x_context: Array, paths: np.ndarray,
+                          idces: np.ndarray):
+        """Re-score the winners in host float64 and re-sort (stable), closing
+        the float32 rounding gap between returned distances and a float64
+        oracle."""
+        paths = paths.astype(np.float64)
+        kernel = self.embedding.kernel.astype(np.float64)
+        x_ctx = dim_bct(as_numpy(x_context).astype(np.float64))
+        in_paths = np.asarray(self.context.select_in_context(paths))
+        e = np.einsum("bkcw,dcw->bkd", in_paths, kernel)
+        x_emb = np.einsum("bcw,dcw->bd", x_ctx, kernel)
+        d = self.distance.forward_host(x_emb[:, None, :], e)      # (B, k)
+        order = np.argsort(d, axis=-1, kind="stable")
+        d = np.take_along_axis(d, order, axis=-1)
+        paths = np.take_along_axis(paths, order[..., None, None], axis=1)
+        idces = np.take_along_axis(idces, order[..., None], axis=1)
+        return d, paths.astype(np.float32), idces
 
     def shadow_device(
         self,
@@ -629,14 +704,25 @@ class PathShadowing:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Shadow then aggregate, ``n_context_splits`` chunks of contexts at
         a time. Each chunk's intermediates are freed before the next one
-        starts, so device memory holds one chunk's search at a time."""
+        starts, so device memory holds one chunk's search at a time.
+
+        Contexts are padded (by repeating the last one) to a multiple of the
+        chunk, and the results cut back to B: every chunk has one shape and
+        one route, so a short remainder never drops below
+        ``FACTORED_MIN_B`` onto the Toeplitz kernel."""
         del cuda
         t0 = time.perf_counter()
         x = _contexts(x_context)
         B = x.shape[0]
         chunk = -(-B // n_context_splits)
+        pad = (-B) % chunk
+        if pad:
+            if isinstance(x, torch.Tensor):
+                x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+            else:
+                x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
         preds, stds, n_redo = [], [], 0
-        for s in range(0, B, chunk):
+        for s in range(0, x.shape[0], chunk):
             d, p, _, n = self._search(x[s : s + chunk], k, n_dataset_splits,
                                       method)
             a, b = _aggregate_predictions(d, p, to_predict, proba_name, eta,
@@ -647,4 +733,52 @@ class PathShadowing:
             n_redo += n
         self._record_metrics("predict", t0, B=B, k=k, redo_contexts=n_redo,
                              n_context_chunks=len(preds))
-        return np.concatenate(preds), np.concatenate(stds)
+        return np.concatenate(preds)[:B], np.concatenate(stds)[:B]
+
+
+# --------------------------------------------------------------------------
+# several row-slice engines searched as one dataset
+# --------------------------------------------------------------------------
+
+def shadow_sharded_rows(
+    engines,
+    x_context: Array,
+    k: int = 1,
+    n_splits: Optional[int] = None,
+    method: str = "auto",
+    exact_dtype: str = "float32",
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:meth:`PathShadowing.shadow` over several engines holding consecutive
+    row slices of one dataset (same embedding, distance and context).
+
+    The JAX package needs this where ``R * n_out`` overflows int32 flat ids;
+    the port's ids are int64, so here it only keeps the API (and lets a
+    dataset too large for one card be searched slice by slice). Per-engine
+    exact top-k results merge into the global k smallest — exact by the
+    same streaming-merge property as ``n_splits`` — and winner trajectory
+    ids are offset back into the full dataset's row numbering.
+
+    :param engines: engines over consecutive row slices, in dataset order
+    :return: same contract as :meth:`PathShadowing.shadow`
+    """
+    if not engines:
+        raise ValueError("shadow_sharded_rows needs at least one engine")
+    outs = []
+    offset = total = 0
+    for eng in engines:
+        _, n_out = eng._plan()
+        k_loc = min(k, eng.R * n_out)   # at most k winners come from a slice
+        d, p, i = eng.shadow(x_context, k=k_loc, n_splits=n_splits,
+                             method=method, exact_dtype=exact_dtype)
+        i = i.copy()
+        i[..., 0] += offset
+        offset += eng.R
+        total += eng.R * n_out
+        outs.append((d, p, i))
+    if k > total:
+        raise ValueError(f"k={k} exceeds the {total} total candidates")
+    d, p, i = (np.concatenate([o[j] for o in outs], axis=1) for j in range(3))
+    order = np.argsort(d, axis=1, kind="stable")[:, :k]
+    return (np.take_along_axis(d, order, axis=1),
+            np.take_along_axis(p, order[..., None, None], axis=1),
+            np.take_along_axis(i, order[..., None], axis=1))

@@ -77,6 +77,72 @@ def test_blockmin_factored(cuda, R, d, n_out, B):
     check(got, factored.score_blockmin_factored_plain(E, norms, x_emb.to(cuda)))
 
 
+def agree_up_to_ties(d_a, i_a, d_b, i_b, atol=1e-6, rtol=1e-5):
+    """Winner ids agree rank for rank, except at ranks whose distance lies
+    within the float32 tie window (``tests/test_fuzz.py``'s 1e-6 + 1e-5
+    relative) of a neighbour's or of the k-th distance."""
+    for da, db, ia, ib in zip(d_a, d_b, i_a, i_b):
+        taint = np.zeros(len(da), bool)
+        for d in (da, db):
+            win = atol + rtol * np.abs(d)
+            tight = np.abs(np.diff(d)) <= win[1:]
+            taint[:-1] |= tight
+            taint[1:] |= tight
+            taint |= np.abs(d - d[-1]) <= win[-1]
+        if not ((ia == ib).all(-1) | taint).all():
+            return False
+    return True
+
+
+@pytest.mark.parametrize("route", ["cosine", "foveal-400"])
+def test_fused_route_equals_direct(cuda, route):
+    import shadowing_tpu_torch as P
+
+    rng = np.random.default_rng(4)
+    ds = rng.normal(0, 0.011, size=(300, 1, 700)).astype(np.float32)
+    if route == "cosine":
+        emb, dist, w = P.Identity(20), P.CosineDistance(), 20
+    else:
+        emb, dist, w = P.Foveal(1.15, 0.9, 400), P.RelativeMSE(), 400
+    eng = P.PathShadowing(emb, dist, ds, P.PredictionContext(20), device=cuda)
+    ctx = np.concatenate([ds[:2, :, 100 : 100 + w],
+                          rng.normal(0, 0.011, size=(3, 1, w))]).astype(np.float32)
+    d_f, p_f, i_f = eng.shadow(ctx, k=100)
+    assert eng.last_metrics["method"] == "fused"
+    d_d, _, i_d = eng.shadow(ctx, k=100, method="direct")
+    assert agree_up_to_ties(d_f, i_f, d_d, i_d)
+    np.testing.assert_allclose(d_f, d_d, rtol=1e-5, atol=1e-6)
+    assert (np.diff(d_f, axis=1) >= 0).all()
+    r, t = i_f[2, 0]
+    np.testing.assert_array_equal(p_f[2, 0], ds[r, :, t : t + w + 20])
+
+
+def test_generators_are_deterministic_per_seed(cuda):
+    import shadowing_tpu_torch as P
+
+    mk = lambda seed: P.MRWGenerator(T=1025, seed=seed, device=cuda)
+    a, b, c = mk(1).generate(512), mk(1).generate(512), mk(2).generate(512)
+    assert a.is_cuda and a.shape == (512, 1, 1025)
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert (a[:, :, 0] == 0).all()
+    assert abs(torch.diff(a[:, 0], dim=-1).std().item() / 0.0126 - 1) < 0.1
+
+    m = P.PDVModelDiscrete(lams1=[55.0, 10.0], lams2=[20.0, 3.0],
+                           thetas=[0.25, 0.5], betas=[0.04, -0.12, 0.75],
+                           nu=4.0, device=cuda)
+    kw = dict(T=0.5, dt=1 / 252, S0=100.0, S=256, R10=np.zeros(2),
+              R20=np.full(2, 0.04))
+    gen = lambda seed: torch.Generator(device=cuda).manual_seed(seed)
+    s1, x1 = m.gen(**kw, generator=gen(7))
+    s2, x2 = m.gen(**kw, generator=gen(7))
+    _, x3 = m.gen(**kw, generator=gen(8))
+    np.testing.assert_array_equal(x1, x2)
+    np.testing.assert_array_equal(s1, s2)
+    assert not np.array_equal(x1, x3)
+    np.testing.assert_array_equal(m.gen(**kw)[1], m.gen(**kw)[1])
+    assert x1.shape == (256, 126) and (x1[:, 0] == 100.0).all() and (x1 > 0).all()
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     y, norms, g = problem(cuda, 8, 1, 300, 20, 200, 1)
     with pytest.raises(ValueError, match="is on cpu"):
