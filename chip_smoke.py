@@ -30,7 +30,18 @@ drives the main path at the README workflow scale (32,768 trajectories x
 11. ``rolling_backtest`` on its returns with the AR-linear benchmark:
     2,048 dates at k = 1,024 and 256 dates at k = 16,384, in 64-date
     chunks through K2, two dates held against the direct oracle;
-12. 4,096 ``PDVModelDiscrete`` paths of 4,096 daily steps on the card.
+12. 4,096 ``PDVModelDiscrete`` paths of 4,096 daily steps on the card;
+13. scattering-spectra generation on the card, calibrated to the bundled
+    S&P-like series over the CLI's 2000-2014 range (J = 9, T = 4,096, tol
+    1e-2, 1,000 steps): one 1,024-seed shard twice from one seed (equal bit
+    for bit), then ``generate`` of ``R_SCAT`` paths (converged share,
+    scale, flatness and tails checked), the cost of one Adam step by part
+    and a profiler trace of it, and the generated dataset searched by
+    ``predict_and_smile`` (K1) and a 64-context ``predict`` (K2) against the
+    on-card direct oracle;
+14. the generation CLI as users run it: two job-array tasks as
+    subprocesses, the restart skip, ``batch_generations`` and a load
+    through ``TimeSeriesDataset``.
 
 Every check raises on failure. The line before the last is a JSON object
 of the kernels' launch counts summed over every path, errors and times;
@@ -59,6 +70,12 @@ W_WIDE = 400                  # Foveal(1.15, 0.9, 400): wider than MAX_WIDTH
 SEL_N, SEL_KS = 1_300_000, (10_000, 16_384)   # selection timing
 N_DATES, N_DATES_BIG, K_BIG = 2048, 256, 16384  # bench.py's backtest shapes
 PDV_S, PDV_STEPS = 4096, 4096
+#: phase 13: the CLI's calibration range; a quarter of the reference's
+#: 32,768 paths (the full size took 214 s on the card: PERF.md §4)
+R_SCAT, SCAT_BATCH = 8192, 1024
+SCAT_J, SCAT_T, SCAT_TOL, SCAT_ITERS = 9, 4096, 1e-2, 1000
+SCAT_START, SCAT_END = "03-01-2000", "31-12-2014"
+CLI_R, CLI_BATCH = 2048, 256  # phase 14: two tasks of 1,024 paths
 PDV_PARAMS = dict(lams1=[55.0, 10.0], lams2=[20.0, 3.0], thetas=[0.25, 0.5],
                   betas=[0.04, -0.12, 0.75])
 
@@ -664,6 +681,271 @@ def pdv_paths(device) -> None:
         f"{s_calm:.4f} -> {s_crash:.4f}")
 
 
+# --------------------------------------------------------------------------
+# phases 13-14: scattering-spectra generation and its CLI (third slice)
+# --------------------------------------------------------------------------
+
+def scattering_generation(device):
+    """Phase 13, generation: returns the generated ``(R_SCAT, 1, T)``
+    log-returns on the card and the calibration series."""
+    import torch
+
+    from shadowing_tpu_torch import SPDaily, analyze, generate
+    from shadowing_tpu_torch.array_types import fp32_exact
+    from shadowing_tpu_torch.models.scattering import build_filter_bank
+    from shadowing_tpu_torch.models.scattering import synthesis as syn
+    from shadowing_tpu_torch.models.scattering.generate import (
+        _shard_seed,
+        target_stats,
+    )
+    from shadowing_tpu_torch.models.scattering.moments import (
+        _scattering_stats_flat,
+    )
+    from shadowing_tpu_torch.utils.profiling import device_trace
+
+    snp = SPDaily(start=SCAT_START, end=SCAT_END)
+    dlnx = snp.dlnx[0, 0]
+    t0 = time.perf_counter()
+    target = target_stats(dlnx, SCAT_J)
+    t_target = time.perf_counter() - t0
+    bank = build_filter_bank(SCAT_T, SCAT_J)
+
+    def shard():
+        """Generate's first shard: ``(z, rms, work_log, wall)``."""
+        wl = {}
+        gen = torch.Generator(device=device).manual_seed(_shard_seed(0, 0))
+        t0 = time.perf_counter()
+        z, rms = syn.synthesize_batch(gen, target, bank, batch=SCAT_BATCH,
+                                      max_iterations=SCAT_ITERS, tol=SCAT_TOL,
+                                      work_log=wl)
+        torch.cuda.synchronize()
+        return z, rms, wl, time.perf_counter() - t0
+
+    # one shard twice from one seed: bit for bit (the first pays cuFFT
+    # plans), then once under the profiler (kernels only: a shard launches
+    # ~10^5-10^6 of them)
+    (z0, rms0, wl0, w0), (z1, rms1, wl1, w1) = shard(), shard()
+    trace = Path(__file__).resolve().parent / "build" / "traces" / "shard.json"
+    trace.parent.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        z2 = shard()[0]
+    prof.export_chrome_trace(str(trace))
+    busy, n_kernels, top = device_busy(trace)
+    trace.unlink()
+    if not (torch.equal(z0, z1) and torch.equal(z0, z2)
+            and np.array_equal(rms0, rms1)
+            and wl0["seed_steps"] == wl1["seed_steps"]):
+        raise AssertionError("syntheses of one shard from one seed differ")
+    log(f"phase 13 synthesize_batch ({SCAT_BATCH} seeds, J={SCAT_J}, "
+        f"T={SCAT_T}, tol {SCAT_TOL}, <= {SCAT_ITERS} steps) twice from one "
+        f"seed: equal bit for bit; wall {w0:.3f} s (first) and {w1:.3f} s; "
+        f"{wl1['seed_steps']} seed-steps over {wl1['steps']} steps "
+        f"({1e6 * wl1['t_loop_s'] / wl1['seed_steps']:.2f} us/seed-step); "
+        f"converged {(rms1 < SCAT_TOL).mean():.4f}, rms median "
+        f"{np.median(rms1):.5f} max {rms1.max():.5f}; target on the CPU "
+        f"{t_target:.3f} s ({len(dlnx)} days)")
+    log(f"  profiled third run (equal too): device busy {busy:.3f} s = "
+        f"{100 * busy / w1:.1f} % of the unprofiled wall, {n_kernels} kernels "
+        f"= {n_kernels / wl1['steps']:.0f} per step; top by device ms: {top}")
+
+    # the full generation
+    torch.cuda.reset_peak_memory_stats()
+    logs = []
+    t0 = time.perf_counter()
+    out = generate(snp, R=R_SCAT, J=SCAT_J, T=SCAT_T, tol_optim=SCAT_TOL,
+                   max_iterations=SCAT_ITERS, seed=0, batch=SCAT_BATCH,
+                   shard_logs=logs, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rms = np.concatenate([lg["rms"] for lg in logs])
+    seed_steps = sum(lg["seed_steps"] for lg in logs)
+    loop_s = sum(lg["t_loop_s"] for lg in logs)
+    conv = float((rms < SCAT_TOL).mean())
+    std_ratio = float(out.std()) / dlnx.std()
+    f_obs = analyze(dlnx, J=SCAT_J).flatness()
+    f_gen = analyze(out[:SCAT_BATCH].cpu().numpy().ravel(), J=SCAT_J).flatness()
+    f_err = float(np.abs(f_gen / f_obs - 1).max())
+    x = out.double()
+    exkurt = float(((x - x.mean()) ** 4).mean() / x.var(correction=0) ** 2 - 3)
+    same0 = torch.equal(out[:SCAT_BATCH, 0],
+                        z0 * float(dlnx.std()) + float(dlnx.mean()))
+    del x
+    log(f"phase 13 generate(R={R_SCAT}, batch={SCAT_BATCH}) on the card: "
+        f"{wall:.3f} s = {R_SCAT / wall:.1f} paths/s; {seed_steps} "
+        f"seed-steps, {1e6 * loop_s / seed_steps:.2f} us/seed-step; "
+        f"converged {conv:.4f}, rms median {np.median(rms):.5f} max "
+        f"{rms.max():.5f}; shard walls {min(lg['wall_s'] for lg in logs):.3f}"
+        f"-{max(lg['wall_s'] for lg in logs):.3f} s, steps "
+        f"{min(lg['steps'] for lg in logs)}-{max(lg['steps'] for lg in logs)}"
+        f"; peak allocated {peak:.2f} GiB")
+    log(f"  checks: shape {tuple(out.shape)}, finite; std {std_ratio:.4f} of "
+        f"the observed; flatness of the first {SCAT_BATCH} paths "
+        f"{np.round(f_gen, 3).tolist()} vs target {np.round(f_obs, 3).tolist()}"
+        f" (max rel err {f_err:.3f}); excess kurtosis {exkurt:.3f}; shard 0 = "
+        f"the determinism run rescaled: {same0}")
+    if not (out.shape == (R_SCAT, 1, SCAT_T) and out.device.type == device.type
+            and bool(torch.isfinite(out).all()) and conv >= 0.95
+            and abs(std_ratio - 1) <= 0.1 and f_err <= 0.35 and exkurt > 1
+            and same0):
+        raise AssertionError("phase 13: the generated dataset fails its checks")
+
+    # one Adam step by part, at the full batch and at a straggler tail
+    psi = torch.as_tensor(bank.psi_hat, device=device)
+    tgt = target.to(device)
+    lr = syn.default_lr_schedule(SCAT_ITERS)
+    kw = dict(target=tgt, psi_hat=psi, J=SCAT_J, lr=lr, bands=bank.band_hi,
+              standardize=True)
+    trace_dir = Path(__file__).resolve().parent / "build" / "traces"
+    for rows in (SCAT_BATCH, 16):
+        z = syn._standardize(out[:rows, 0].clone())
+        m, v = torch.zeros_like(z), torch.zeros_like(z)
+        with fp32_exact():
+            def fwd():
+                with torch.no_grad():
+                    _scattering_stats_flat(syn._standardize(z), psi, SCAT_J,
+                                           bank.band_hi)
+            g = syn._loss_grad(z, tgt, psi, SCAT_J, bank.band_hi, True)
+            t_fwd = median_ms(fwd)
+            t_fb = median_ms(lambda: syn._loss_grad(z, tgt, psi, SCAT_J,
+                                                    bank.band_hi, True))
+            t_adam = median_ms(lambda: syn._adam_step(z, m, v, 200, g, lr))
+        seg = lambda n: syn._optimize_segment(z, m, v, 200, n_steps=n, **kw)
+        seg(10)
+        t_seg = median_wall(lambda: seg(10), 3)
+        counts = {}
+        for n in (10, 0):
+            with device_trace(str(trace_dir)):
+                seg(n)
+                torch.cuda.synchronize()
+            counts[n] = device_busy(trace_dir / "trace.json")
+        busy, n_k, top = counts[10]
+        log(f"  Adam step at {rows} rows (CUDA events, median of 5): "
+            f"forward statistics {t_fwd:.3f} ms, forward + backward "
+            f"{t_fb:.3f} ms (backward {t_fb - t_fwd:.3f}), Adam update "
+            f"{t_adam:.3f} ms; a 10-step segment {t_seg * 1e3:.2f} ms wall "
+            f"({t_seg * 1e2:.3f} ms/step); profiled: device busy "
+            f"{busy * 1e3:.2f} ms = {100 * busy / t_seg:.1f} % of the "
+            f"unprofiled wall, {(n_k - counts[0][1]) / 10:.0f} kernels per "
+            f"step (+{counts[0][1]} for the closing loss); top by device ms: "
+            f"{top}")
+    return out, dlnx
+
+
+def scattering_search(data, device) -> None:
+    """Phase 13, search: the generated dataset through K1 and K2."""
+    import torch
+
+    from shadowing_tpu_torch import (
+        Identity,
+        PathShadowing,
+        PredictionContext,
+        RelativeMSE,
+        realized_variance,
+    )
+
+    out, dlnx = data
+    ctx = dlnx[-W:].astype(np.float32)
+    eng = PathShadowing(Identity(W), RelativeMSE(), out, PredictionContext(H),
+                        device=device)
+    to_predict = lambda x: realized_variance(x[:, :, 0, :], Ts=TS, vol=False)
+    with Launches() as ran:
+        (vars_, _, smiles), first, warm = first_and_warm(
+            lambda: eng.predict_and_smile(ctx, k=K, to_predict=to_predict,
+                                          Ts=TS, Ms=MS, eta=0.1,
+                                          eta_smile=0.075))
+    ran.require("K1", "predict_and_smile on the generated dataset")
+    _, _, i = eng.shadow(ctx, k=K)
+    _, _, i_dir = eng.shadow(ctx, k=K, method="direct")
+    d0, _, i0 = eng.shadow(out[0, 0, :W].cpu().numpy(), k=4)
+    if not (np.array_equal(i, i_dir) and d0[0, 0] == 0.0
+            and tuple(i0[0, 0]) == (0, 0) and np.isfinite(vars_).all()):
+        raise AssertionError("phase 13: K1 winners differ from the direct "
+                             f"oracle, or self-match {d0[0, 0]} at {i0[0, 0]}")
+    log(f"phase 13 predict_and_smile on the generated dataset (B=1, k={K}): "
+        f"first {first:.3f} s, warm {warm:.4f} s (median of 3); launches "
+        f"{ran.counts}; ids = the direct oracle's, self-match 0.0 at (0, 0); "
+        f"ATM vols {np.round(smiles[0].vols[:, 4], 4).tolist()}")
+
+    rng = np.random.default_rng(4)
+    rows = rng.integers(0, out.shape[0], 64)
+    starts = rng.integers(0, out.shape[-1] - W - H, 64)
+    ctx64 = torch.stack([out[r, :, s : s + W] for r, s in zip(rows, starts)]
+                        ).cpu().numpy()
+    with Launches() as ran:
+        (pred, _), first, warm = first_and_warm(
+            lambda: eng.predict(ctx64, k=K, to_predict=to_predict, eta=0.1))
+    ran.require("K2", "the 64-context predict on the generated dataset")
+    _, _, i64 = eng.shadow(ctx64, k=K)
+    _, _, i_dir = eng.shadow(ctx64[:2], k=K, method="direct")
+    if not (np.array_equal(i64[:2], i_dir) and pred.shape == (64, len(TS))
+            and np.isfinite(pred).all()):
+        raise AssertionError("phase 13: K2 winners differ from the direct "
+                             "oracle, or non-finite predictions")
+    log(f"phase 13 predict on the generated dataset (B=64, k={K}): first "
+        f"{first:.3f} s, warm {warm:.4f} s (median of 3); launches "
+        f"{ran.counts}; 2x{K} ids = the direct oracle's")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def generation_cli(device) -> None:
+    """Phase 14: the generation CLI, two job-array tasks as subprocesses
+    (the flags after ``-q`` restate the defaults, with phase 13's sizes)."""
+    import shutil
+
+    from shadowing_tpu_torch import TimeSeriesDataset
+
+    root = Path(__file__).resolve().parent
+    cache, batched = root / "build" / "scat_cli", root / "build" / "scat_cli_b"
+    for d in (cache, batched):
+        shutil.rmtree(d, ignore_errors=True)
+    gen_cmd = [sys.executable, "-m", "shadowing_tpu_torch.cli.snp_generation",
+               "-ntot", "2", "-R", str(CLI_R), "--cache", str(cache), "-q",
+               "-J", str(SCAT_J), "-T", str(SCAT_T), "--max-iterations",
+               str(SCAT_ITERS), "--batch", str(CLI_BATCH), "--device",
+               device.type]
+
+    def run_all(cmds, timeout=600):
+        procs = [subprocess.Popen(c, cwd=root, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        try:
+            outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for c, p, o in zip(cmds, procs, outs):
+            if p.returncode != 0 or not o.rstrip().endswith("FINISHED"):
+                raise AssertionError(f"{' '.join(c[2:])} -> rc "
+                                     f"{p.returncode}:\n{o[-3000:]}")
+        return outs
+
+    t0 = time.perf_counter()
+    run_all([gen_cmd + ["-tid", str(tid)] for tid in (0, 1)])
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (again,) = run_all([gen_cmd + ["-tid", "0"]])
+    t_skip = time.perf_counter() - t0
+    if "already exists — skipping" not in again:
+        raise AssertionError(f"re-run of task 0 did not skip:\n{again}")
+    run_all([[sys.executable, "-m", "shadowing_tpu_torch.cli.batch_generations",
+              "--input", str(cache), "--output", str(batched)]])
+    data = TimeSeriesDataset(batched).load()
+    half = CLI_R // 2
+    if not (data.shape == (CLI_R, 1, SCAT_T) and np.isfinite(data).all()
+            and not np.array_equal(data[:half], data[half:])):
+        raise AssertionError(f"phase 14: loaded {data.shape}")
+    log(f"phase 14 CLI: snp_generation -ntot 2 -tid 0|1 -R {CLI_R} (two "
+        f"concurrent processes on the card) {t_gen:.1f} s; re-run of task 0 "
+        f"skipped in {t_skip:.1f} s; batch_generations + TimeSeriesDataset "
+        f"-> {data.shape} finite, the two tasks' rows differ; std "
+        f"{data.std():.5f}")
+
+
 def main() -> int:
     import torch
 
@@ -707,9 +989,13 @@ def main() -> int:
     backtest(mrw_dataset(device), device)
     torch.cuda.empty_cache()
     pdv_paths(device)
+    torch.cuda.empty_cache()
+    scattering_search(scattering_generation(device), device)
+    torch.cuda.empty_cache()
+    generation_cli(device)
     launches = {n: path[n] + Launches.totals[n] for n in ("K1", "K2")}
     log(f"launches over every path: {launches} (phases 4-6 {path['K1']} K1, "
-        f"{path['K2']} K2; phases 7-12 {Launches.totals})")
+        f"{path['K2']} K2; phases 7-14 {Launches.totals})")
     kernels = [
         {"name": "blockmin_toeplitz", "route": "cuda",
          "source": "shadowing_tpu_torch/csrc/blockmin_toeplitz.cu",

@@ -55,6 +55,12 @@ _LAZY = {
     "kernel_pl": "shadowing_tpu_torch.models.pdv",
     "DEFAULT1": "shadowing_tpu_torch.models.pdv",
     "DEFAULT2": "shadowing_tpu_torch.models.pdv",
+    "analyze": "shadowing_tpu_torch.models.scattering",
+    "generate": "shadowing_tpu_torch.models.scattering",
+    "scattering_stats": "shadowing_tpu_torch.models.scattering",
+    "ScatteringStats": "shadowing_tpu_torch.models.scattering",
+    "FilterBank": "shadowing_tpu_torch.models.scattering",
+    "build_filter_bank": "shadowing_tpu_torch.models.scattering",
 }
 
 

@@ -1,4 +1,4 @@
-"""Path generators: MRW, PDV."""
+"""Path generators: MRW, PDV; scattering spectra in :mod:`.scattering`."""
 from shadowing_tpu_torch.models.mrw import MRWGenerator
 from shadowing_tpu_torch.models.pdv import (
     DEFAULT1,

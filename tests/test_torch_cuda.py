@@ -155,3 +155,59 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="MAX_DIM"):
         factored.score_blockmin_factored(E, norms[:, :256].contiguous(),
                                          torch.zeros((1, 49), device=cuda))
+
+
+def scattering_target(T, J, seed=0):
+    from shadowing_tpu_torch.models.scattering import (
+        build_filter_bank,
+        scattering_stats,
+    )
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_t(4, size=(16, T)).astype(np.float32)
+    x = (x - x.mean(-1, keepdims=True)) / x.std(-1, keepdims=True)
+    bank = build_filter_bank(T, J)
+    return x, bank, scattering_stats(x, bank, average=False)
+
+
+def test_scattering_stats_on_the_card_equal_the_cpu(cuda):
+    """cuFFT and cuBLAS under ``fp32_exact`` against the CPU: atol 1e-5,
+    rtol 1e-4 (float32 FFTs in another order)."""
+    from shadowing_tpu_torch.models.scattering import scattering_stats
+
+    for T, J in ((1024, 6), (1500, 5), (4096, 9)):
+        x, bank, want = scattering_target(T, J)
+        got = scattering_stats(torch.from_numpy(x).to(cuda), bank,
+                               average=False)
+        assert got.is_cuda
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                   atol=1e-5, rtol=1e-4)
+
+
+def test_scattering_synthesis_is_deterministic_on_the_card(cuda):
+    from shadowing_tpu_torch.models.scattering.synthesis import synthesize_batch
+
+    _, bank, target = scattering_target(1024, 6)
+    target = target.mean(dim=0)
+    run = lambda seed: synthesize_batch(
+        torch.Generator(device=cuda).manual_seed(seed), target, bank,
+        batch=64, max_iterations=150, tol=0.02, segment=50)
+    (za, ra), (zb, rb), (zc, _) = run(1), run(1), run(2)
+    assert za.is_cuda and za.shape == (64, 1024)
+    assert torch.equal(za, zb) and np.array_equal(ra, rb)
+    assert not torch.equal(za, zc)
+    assert np.isfinite(ra).all() and np.median(ra) < 0.05
+
+
+def test_generate_returns_a_cuda_tensor(cuda, tmp_path):
+    import shadowing_tpu_torch as P
+
+    dlnx = np.random.default_rng(0).standard_t(4, size=2000) * 0.01
+    out = P.generate(dlnx, R=6, J=5, T=512, max_iterations=60, batch=4,
+                     cache_path=tmp_path)
+    assert out.is_cuda and out.shape == (6, 1, 512)
+    assert torch.isfinite(out).all()
+    assert len(list(tmp_path.glob("scatgen_*/shard*.npy"))) == 2
+    again = P.generate(dlnx, R=6, J=5, T=512, max_iterations=60, batch=4,
+                       cache_path=tmp_path)
+    assert torch.equal(again, out)

@@ -46,7 +46,10 @@ def test_port_never_imports_jax_or_the_jax_package():
     sources = [*PKG.rglob("*.py"), PKG.parent / "chip_smoke.py"]
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert not offenders
-    code = ("import sys, shadowing_tpu_torch, shadowing_tpu_torch.convert; "
+    code = ("import sys, shadowing_tpu_torch, shadowing_tpu_torch.convert, "
+            "shadowing_tpu_torch.models.scattering, "
+            "shadowing_tpu_torch.cli.snp_generation; "
+            "shadowing_tpu_torch.generate; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'shadowing_tpu.')) or m == 'shadowing_tpu']; "
             "sys.exit(bool(bad))")
@@ -60,6 +63,8 @@ def test_cuda_device_is_never_replaced_by_the_cpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         P.PathShadowing(P.Identity(4), P.RelativeMSE(), np.zeros((2, 1, 9)),
                         P.PredictionContext(2))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        P.generate(np.random.default_rng(0).normal(size=64), R=1, J=2, T=16)
 
 
 def test_array_types(rng):
