@@ -12,8 +12,11 @@ drives the main path at the README workflow scale (32,768 trajectories x
 
 1. device: the card's name and power limit;
 2. build: both kernels, with the compiler's register report;
-3. kernel vs plain: K1 at (B=1, w=20), (B=4, w=126) and a ragged C=2
-   shape; K2 at (B=64, d=20) and (B=8, d=48);
+3. kernel vs plain: K1 at (B=1, w=20), (B=4, w=126), a ragged C=2
+   shape and a C=16 shape (channel groups); K2 at (B=64, d=20), (65, 20), (128, 20) and (8, 48); each with
+   its time, its bound (bytes or operations at the card's published
+   peaks), the achieved GB/s and TFLOP/s and the share of the bound; then
+   both kernels over B = 1 .. 64 at w = d = 20;
 4. one context: ``predict_and_smile`` on the last 20 daily returns of the
    bundled S&P-like series, checked against the on-card direct oracle;
 5. 64 contexts: ``predict`` through the factored kernel, checked against
@@ -44,7 +47,8 @@ drives the main path at the README workflow scale (32,768 trajectories x
     through ``TimeSeriesDataset``.
 
 Every check raises on failure. The line before the last is a JSON object
-of the kernels' launch counts summed over every path, errors and times;
+of the kernels: launch counts summed over every path, and per shape the
+error, the times and the bound;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script exits non-zero and prints no result.
 """
@@ -63,6 +67,12 @@ W, H, K = 20, 20, 1024        # context width, horizon, winners per context
 TS = [5, 10, 20]
 MS = np.linspace(-2, 2, 9)
 TOL = 1e-5                    # kernel vs plain: max abs error / max |score|
+#: published peaks of one H100 SXM (dense): HBM bytes/s, fp32 on the CUDA
+#: cores, bf16 on the tensor cores
+HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
+SWEEP_B = (1, 2, 4, 8, 16, 32, 64)  # phase 3: contexts per call, w = d = 20
+LIBRARY = ("none: no one PyTorch call folds the minimum over each 128-start "
+           "block into norms - 2 * cross")
 #: tests/test_fuzz.py's float32 tie window: ids may differ only between
 #: ranks closer than this (absolute + relative) or this close to the k-th
 TIE_ATOL, TIE_RTOL = 1e-6, 1e-5
@@ -120,9 +130,63 @@ def median_wall(fn, n: int = 5) -> float:
     return float(np.median(times))
 
 
-def compare(label: str, kernel_fn, plain_fn) -> dict:
+def bound(nbytes: int, flop: int, peak: float) -> tuple:
+    """The least time (ms) the card could take for a call that must move
+    ``nbytes`` (each input read once, each output written once) and do
+    ``flop`` operations at ``peak`` per second, and which of the two binds."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flop / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def k1_work(y, norms, g) -> tuple:
+    """Bytes, flop and peak rate of one K1 call: fp32 FMAs on the CUDA
+    cores."""
+    R, C, _ = y.shape
+    B, _, w = g.shape
+    n_out = norms.shape[1]
+    out = B * R * -(-n_out // 128)
+    nbytes = 4 * (y.numel() + norms.numel() + g.numel() + out)
+    return nbytes, 2 * B * R * n_out * C * w, FP32_FLOPS
+
+
+def k2_work(E, norms, x) -> tuple:
+    """Bytes, flop and peak rate of one K2 call: each fp32-class FMA is at
+    least three tensor-core products, at best bf16 ones (bf16x3, the
+    fastest split in the reference's error class; the kernel runs 3xTF32)."""
+    R, d, Tp = E.shape
+    B = x.shape[0]
+    n_out = norms.shape[1]
+    nbytes = 4 * (E.numel() + norms.numel() + x.numel() + B * R * (Tp // 128))
+    return nbytes, 2 * B * R * n_out * d, BF16_FLOPS / 3
+
+
+def timing(label: str, fn, work) -> dict:
+    """Median device time of one kernel call beside its bound."""
+    nbytes, flop, peak = work
+    ms = median_ms(fn)
+    bound_ms, by = bound(nbytes, flop, peak)
+    return {"shape": label, "ms": ms, "bound_ms": bound_ms, "bound_by": by,
+            "gb_s": nbytes / ms / 1e6, "tflop_s": flop / ms / 1e9,
+            "share": bound_ms / ms}
+
+
+def blocks_per_sm(kernel: str, *args: int) -> int:
+    """Blocks of a persistent kernel that one SM holds for this launch (the
+    CUDA occupancy calculator, registers and shared memory included): K1
+    takes its C, w and the first chunk's B, K2 its d and B."""
+    import ctypes
+
+    from shadowing_tpu_torch.ops import _build
+
+    fn = getattr(_build._library(), f"{kernel}_blocks_per_sm")
+    fn.argtypes, fn.restype = [ctypes.c_int] * len(args), ctypes.c_int
+    return fn(*args)
+
+
+def compare(label: str, kernel_fn, plain_fn, work, occupancy: int) -> dict:
     """Kernel vs plain on the same inputs: error relative to the largest
-    finite score, count of blocks that differ, and both times."""
+    finite score, count of blocks that differ, both times and the bound;
+    ``occupancy`` is the kernel's blocks per SM at this shape."""
     import torch
 
     got, want = kernel_fn(), plain_fn()
@@ -134,14 +198,21 @@ def compare(label: str, kernel_fn, plain_fn) -> dict:
     n_diff = int(((fin_g != fin_w)
                   | (both & ((got - want).abs() > TOL * scale))
                   | (~fin_w & (got != want))).sum())
-    ms, plain_ms = median_ms(kernel_fn), median_ms(plain_fn)
+    r = timing(label, kernel_fn, work)
+    r.update(max_abs_err=err, plain_ms=median_ms(plain_fn),
+             blocks_per_sm=occupancy)
     rel = err / scale
+    by = {"bytes": "memory", "operations": "fp32 flop" if work[2] == FP32_FLOPS
+          else "bf16x3 flop"}[r["bound_by"]]
     log(f"  {label}: max_abs_err {err:.3e} = {rel:.3e} of max|score| "
         f"{scale:.4g}, differing blocks {n_diff}, +inf blocks "
-        f"{int((~fin_w).sum())}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        f"{int((~fin_w).sum())}; kernel {r['ms']:.3f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({by}), "
+        f"{r['gb_s']:.0f} GB/s, {r['tflop_s']:.2f} TFLOP/s, "
+        f"{100 * r['share']:.1f} % of the bound, {occupancy} blocks/SM")
     if torch.isnan(got).any() or rel > TOL or n_diff:
         raise AssertionError(f"{label}: kernel disagrees with its plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return r
 
 
 def windows(y, rows, starts, w: int):
@@ -152,7 +223,8 @@ def windows(y, rows, starts, w: int):
 
 def kernels_vs_plain(y, device) -> dict:
     """Phase 3: both kernels against their plain versions at the main
-    path's shapes, plus a ragged shape."""
+    path's shapes and more, each beside its bound, then a sweep of the
+    context count B at w = d = 20 (the K1/K2 crossover)."""
     import torch
 
     from shadowing_tpu_torch.ops import factored, search
@@ -164,17 +236,33 @@ def kernels_vs_plain(y, device) -> dict:
         bank = torch.eye(C * w, device=y.device).reshape(C * w, C, w)
         return _window_norms(y, bank, n_out, n_splits=16, identity_fast=True)
 
+    def k1_occupancy(y, norms, g):
+        R, C, _ = y.shape
+        B, _, w = g.shape
+        plan = search.toeplitz_plan(R, C, w, norms.shape[1], B)
+        return blocks_per_sm("blockmin_toeplitz", C, w, plan.chunks[0][1])
+
     rng = np.random.default_rng(2)
-    res = {}
+    res = {"K1": [], "K2": []}
+    sweep = {"K1": [], "K2": []}
     Rn, _, Tn = y.shape
+    ctx = lambda y, n_out, w, B: windows(y, rng.integers(0, y.shape[0], B),
+                                         rng.integers(0, n_out, B), w)
     for B, w in ((1, W), (4, 126)):
         n_out = Tn - w - H + 1
         norms = identity_norms(y, w, n_out)
-        g = windows(y, rng.integers(0, Rn, B), rng.integers(0, n_out, B), w)
-        r = compare(f"K1 blockmin_toeplitz B={B} w={w} ({Rn}x{Tn})",
-                    lambda: search.score_blockmin(y, norms, g),
-                    lambda: search.score_blockmin_plain(y, norms, g))
-        res.setdefault("K1", r)
+        g = ctx(y, n_out, w, B)
+        res["K1"].append(compare(
+            f"K1 blockmin_toeplitz B={B} w={w} ({Rn}x{Tn})",
+            lambda: search.score_blockmin(y, norms, g),
+            lambda: search.score_blockmin_plain(y, norms, g),
+            k1_work(y, norms, g), k1_occupancy(y, norms, g)))
+        if w == W:
+            for Bs in SWEEP_B:
+                gs = ctx(y, n_out, w, Bs)
+                sweep["K1"].append(timing(
+                    f"B={Bs}", lambda: search.score_blockmin(y, norms, gs),
+                    k1_work(y, norms, gs)))
         del norms
     # ragged: R, n_out off every tile, two channels, barred (+inf) rows
     yr = torch.from_numpy(rng.standard_normal((1001, 2, 700)).astype(np.float32)
@@ -182,11 +270,24 @@ def kernels_vs_plain(y, device) -> dict:
     norms = identity_norms(yr, 33, 601)
     norms[[5, 600]] = float("inf")
     g = windows(yr, [3, 70, 999], [0, 17, 600], 33)
-    compare("K1 blockmin_toeplitz ragged R=1001 C=2 n_out=601 w=33 B=3",
-            lambda: search.score_blockmin(yr, norms, g),
-            lambda: search.score_blockmin_plain(yr, norms, g))
+    res["K1"].append(compare(
+        "K1 blockmin_toeplitz ragged R=1001 C=2 n_out=601 w=33 B=3",
+        lambda: search.score_blockmin(yr, norms, g),
+        lambda: search.score_blockmin_plain(yr, norms, g),
+        k1_work(yr, norms, g), k1_occupancy(yr, norms, g)))
+    # wide: 16 channels go through the ring in groups, a context pair a launch
+    yw = torch.from_numpy(rng.standard_normal((2048, 16, Tn)).astype(np.float32)
+                          * 0.011).to(device)
+    norms = identity_norms(yw, W, Tn - W - H + 1)
+    g = windows(yw, [1, 900, 2047], [5, 70, Tn - W - H], W)
+    res["K1"].append(compare(
+        f"K1 blockmin_toeplitz wide R=2048 C=16 w={W} B=3 (channel groups)",
+        lambda: search.score_blockmin(yw, norms, g),
+        lambda: search.score_blockmin_plain(yw, norms, g),
+        k1_work(yw, norms, g), k1_occupancy(yw, norms, g)))
+    del yw, norms
 
-    for B, d, kw in ((64, 20, None), (8, 48, 64)):
+    for batch_sizes, d, kw in (((64, 65, 128), 20, None), ((8,), 48, 64)):
         n_out = Tn - (kw or W) - H + 1
         if kw is None:      # the main path's Identity(20) bank
             kernel = torch.eye(d, device=device)[:, None, :]
@@ -197,18 +298,28 @@ def kernels_vs_plain(y, device) -> dict:
         E = factored.build_factored(y, kernel, n_out)
         norms = _window_norms(y, kernel, n_out, n_splits=16,
                               identity_fast=kw is None)
-        x_emb = embed_windows(
-            windows(y, rng.integers(0, Rn, B), rng.integers(0, n_out, B), w),
-            kernel).contiguous()
-        r = compare(f"K2 blockmin_factored B={B} d={d} ({Rn}x{Tn}, E "
-                    f"{E.numel() * 4 / 1e9:.2f} GB)",
-                    lambda: factored.score_blockmin_factored(E, norms, x_emb),
-                    lambda: factored.score_blockmin_factored_plain(E, norms,
-                                                                   x_emb))
-        res.setdefault("K2", r)
+        for B in batch_sizes:
+            x_emb = embed_windows(ctx(y, n_out, w, B), kernel).contiguous()
+            res["K2"].append(compare(
+                f"K2 blockmin_factored B={B} d={d} ({Rn}x{Tn}, E "
+                f"{E.numel() * 4 / 1e9:.2f} GB)",
+                lambda: factored.score_blockmin_factored(E, norms, x_emb),
+                lambda: factored.score_blockmin_factored_plain(E, norms, x_emb),
+                k2_work(E, norms, x_emb),
+                blocks_per_sm("blockmin_factored", d, B)))
+        if kw is None:
+            for Bs in SWEEP_B:
+                xs = embed_windows(ctx(y, n_out, w, Bs), kernel).contiguous()
+                sweep["K2"].append(timing(
+                    f"B={Bs}",
+                    lambda: factored.score_blockmin_factored(E, norms, xs),
+                    k2_work(E, norms, xs)))
         del E, norms
         torch.cuda.empty_cache()
-    return res
+    log("  sweep at w = d = 20, kernel ms (K1 | K2): " + "; ".join(
+        f"{a['shape']} {a['ms']:.3f} | {b['ms']:.3f}"
+        for a, b in zip(sweep["K1"], sweep["K2"])))
+    return {"shapes": res, "sweep": sweep}
 
 
 def main_path(dataset, device) -> dict:
@@ -312,6 +423,9 @@ def main_path(dataset, device) -> dict:
         raise AssertionError("the batched main path never launched K2")
     if not any(s.startswith("factored pass-1 routed") for s in eng.routing_log):
         raise AssertionError(f"no factored grant in {eng.routing_log}")
+    redone = [s for s in eng.routing_log if s.startswith("redo")]
+    if eng.last_metrics["redo_contexts"] or redone:
+        raise AssertionError(f"phases 4-5 redid a certification: {redone}")
     if pred.shape != (64, len(TS)) or not np.isfinite(pred).all():
         raise AssertionError(f"batched predictions {pred.shape} not finite")
 
@@ -324,8 +438,8 @@ def main_path(dataset, device) -> dict:
     _, _, i_dir2 = eng.shadow(ctx64[:2], k=K, method="direct")
     if not np.array_equal(i_fac[:2], i_dir2):
         raise AssertionError("K2 route winners differ from the direct oracle")
-    log(f"  checks: routing_log grants the factored route, 64x{K} ids equal "
-        f"the K1 route's, 2x{K} ids equal the direct oracle")
+    log(f"  checks: routing_log grants the factored route, no context redone, "
+        f"64x{K} ids equal the K1 route's, 2x{K} ids equal the direct oracle")
 
     # ---- phase 6: the redo path -----------------------------------------
     cap = K // 128 // 2
@@ -641,6 +755,10 @@ def backtest(returns, device) -> None:
                 f"{busy:.3f} s = {100 * busy / warm:.1f} % of the unprofiled "
                 f"warm wall, {n_kernels} kernels; top by device ms: {top}")
 
+    redone = [s for s in eng.routing_log if s.startswith("redo")]
+    if redone:
+        raise AssertionError(f"the backtest redid a certification: {redone}")
+    log("  checks: no context redone in any chunk (routing_log)")
     # a 65-context chunk (the default n_dates // 64 splits of 130 dates)
     E, norms = eng.factored_responses(), eng.window_norms()
     x = torch.randn((65, W), generator=torch.Generator(device=device)
@@ -996,16 +1114,22 @@ def main() -> int:
     launches = {n: path[n] + Launches.totals[n] for n in ("K1", "K2")}
     log(f"launches over every path: {launches} (phases 4-6 {path['K1']} K1, "
         f"{path['K2']} K2; phases 7-14 {Launches.totals})")
-    kernels = [
-        {"name": "blockmin_toeplitz", "route": "cuda",
-         "source": "shadowing_tpu_torch/csrc/blockmin_toeplitz.cu",
-         "replaces": "shadowing_tpu/ops/pallas_search.py:209",
-         "launches": launches["K1"], **res["K1"]},
-        {"name": "blockmin_factored", "route": "cuda",
-         "source": "shadowing_tpu_torch/csrc/blockmin_factored.cu",
-         "replaces": "shadowing_tpu/ops/pallas_factored.py:174",
-         "launches": launches["K2"], **res["K2"]},
-    ]
+    kernels = []
+    for name, tag, source, replaces in (
+            ("blockmin_toeplitz", "K1",
+             "shadowing_tpu_torch/csrc/blockmin_toeplitz.cu",
+             "shadowing_tpu/ops/pallas_search.py:209"),
+            ("blockmin_factored", "K2",
+             "shadowing_tpu_torch/csrc/blockmin_factored.cu",
+             "shadowing_tpu/ops/pallas_factored.py:174")):
+        main = res["shapes"][tag][0]     # the main path's shape
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[tag],
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+            "library_ms": None, "library": LIBRARY,
+            "shapes": res["shapes"][tag], "sweep": res["sweep"][tag]})
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-At first use every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, placed under
+At first use every ``csrc/*.cu`` is compiled by its own ``nvcc`` for
+``sm_90a`` (all started together), and the objects are linked into one
+shared library with a plain C interface, placed under
 ``build/torch_kernels/<hash of sources and flags>/`` beside the package, and
 loaded with ``ctypes``. Each C entry point launches on the stream it is
 given and returns ``cudaGetLastError()``; :meth:`Kernel.launch` raises if
@@ -23,7 +24,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _lock = threading.Lock()
 _lib = None
@@ -58,17 +59,30 @@ def build(verbose: bool = False) -> Path:
     if path.exists() and not verbose:
         return path
     path.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=path.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-4000:]}")
-    if verbose:
-        print(res.stderr.strip())
-    os.replace(tmp, path)          # atomic: concurrent builders never see half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=path.parent) as tmpdir:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = Path(tmpdir) / f"{src.stem}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                 "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        logs = [(p, *p.communicate()) for p in procs]
+        for p, _, err in logs:
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({p.returncode}):\n{err[-4000:]}")
+        if verbose:   # ptxas's C7519 notes (one per register-A wgmma site) left out
+            lines = [ln for _, _, err in logs for ln in err.strip().splitlines()]
+            print("\n".join(ln for ln in lines if "(C7519)" not in ln))
+        tmp = Path(tmpdir) / path.name
+        res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stderr[-4000:]}")
+        os.replace(tmp, path)      # atomic: concurrent builders never see half a file
     return path
 
 

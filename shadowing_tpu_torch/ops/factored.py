@@ -7,10 +7,12 @@ context-independent responses ``E[r, d, t] = (y ⋆ kernel_d)[r, t]``. ``E`` is
 built once per engine (:func:`build_factored`, fp32 ``conv1d``); each search
 then reduces pass 1 to a ``(B, d)``-by-``E`` contraction with the block-min
 folded in (:func:`score_blockmin_factored`): the hand-written kernel
-``csrc/blockmin_factored.cu`` on a CUDA tensor, the plain PyTorch version
-(``matmul`` plus the min-fold) on a CPU tensor. Block minima come out in the
-r-major layout of :func:`~shadowing_tpu_torch.ops.search.score_blockmin`, so
-pass 2 is shared unchanged.
+``csrc/blockmin_factored.cu`` on a CUDA tensor (wgmma on the tensor cores in
+3xTF32, within ~2^-21 of fp32 per product, so not bit-equal to the plain
+version), the plain PyTorch version (``matmul`` plus the min-fold) on a CPU
+tensor. Block minima come out in the r-major layout of
+:func:`~shadowing_tpu_torch.ops.search.score_blockmin`, so pass 2 is shared
+unchanged.
 
 ``E`` is float32 ``(R, d, nblk * L)``, window start innermost, zero past
 ``n_out``: ``R * d * nblk * 128 * 4`` bytes (:func:`e_bytes`).
@@ -18,6 +20,7 @@ pass 2 is shared unchanged.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -34,13 +37,53 @@ from shadowing_tpu_torch.ops.search import (
 )
 from shadowing_tpu_torch.ops.sliding import sliding_dot
 
-#: widest embedding the kernel holds in registers
+#: widest embedding the kernel takes
 MAX_DIM = 48
 #: contexts per kernel launch (the launch stages them in shared memory)
 _B_KERNEL = 128
+# the kernel's constants (csrc/blockmin_factored.cu)
+_STAGES, _EST, _WARPS = 3, L + 8, 4
 
 FACTORED = Kernel("blockmin_factored", [ctypes.c_void_p] * 4
-                  + [ctypes.c_int] * 6)
+                  + [ctypes.c_int] * 7)
+
+
+@dataclass(frozen=True)
+class FactoredPlan:
+    """The launch plan of kernel 2, mirrored by ``make_plan`` in
+    ``csrc/blockmin_factored.cu`` (which refuses a launch whose shared
+    memory differs). ``d`` is zero-padded to ``k8`` 8-deep TF32 MMA steps;
+    each launch takes one context chunk in passes of 64 contexts, a last
+    pass 8, 16, 32 or 64 wide; the persistent blocks walk ``tiles`` (row,
+    128-start block) tiles through a ring of ``_STAGES``."""
+
+    k8: int
+    chunks: Tuple[Tuple[int, int], ...]   # (first context, contexts) per launch
+    passes: Tuple[Tuple[int, int], ...]   # (64-wide passes, last pass's n-tiles)
+    smem_bytes: Tuple[int, ...]           # per launch
+    tiles: int
+
+
+def factored_plan(R: int, d: int, n_out: int, B: int) -> FactoredPlan:
+    """Tiles, padded K, context chunks and shared memory of one call."""
+    if not 1 <= d <= MAX_DIM:
+        raise ValueError(f"embedding dim {d} outside 1..MAX_DIM={MAX_DIM}")
+    k8 = -(-d // 8)
+    chunks, passes, smem = [], [], []
+    for b0 in range(0, B, _B_KERNEL):
+        nb = min(_B_KERNEL, B - b0)
+        nt = -(-nb // 8)
+        tail = nt % 8
+        tail_nt = 0 if tail == 0 else 1 << (tail - 1).bit_length()
+        bp = 8 * (8 * (nt // 8) + tail_nt)
+        rows = 8 * k8
+        floats = (2 * bp * rows + _STAGES * rows * _EST + _STAGES * L
+                  + 2 * _WARPS * bp)
+        chunks.append((b0, nb))
+        passes.append((nt // 8, tail_nt))
+        smem.append(4 * floats)
+    return FactoredPlan(k8, tuple(chunks), tuple(passes), tuple(smem),
+                        R * n_blocks(n_out))
 
 
 def e_bytes(R: int, n_out: int, d: int) -> int:
@@ -105,16 +148,14 @@ def score_blockmin_factored(E: torch.Tensor, norms: torch.Tensor,
         return score_blockmin_factored_plain(E, norms, x_emb)
     if dev.type != "cuda":
         raise ValueError(f"no blockmin_factored kernel for device {dev}")
-    if d > MAX_DIM:
-        raise ValueError(f"embedding dim {d} > MAX_DIM={MAX_DIM}")
-    if R * nblk >= 2**31:
-        raise ValueError(f"R={R} rows exceed the kernel's grid")
+    plan = factored_plan(R, d, n_out, B)
+    if plan.tiles >= 2**31:
+        raise ValueError(f"R={R} rows exceed the kernel's tile count")
     out = torch.empty((B, R, nblk), dtype=torch.float32, device=dev)
-    for b0 in range(0, B, _B_KERNEL):
-        xc = x_emb[b0 : b0 + _B_KERNEL]
-        nb = xc.shape[0]
-        FACTORED.launch(ptr(E), ptr(norms), ptr(xc), ptr(out[b0 : b0 + nb]),
-                        R, d, Tp, n_out, nblk, nb)
+    for (b0, nb), smem in zip(plan.chunks, plan.smem_bytes):
+        FACTORED.launch(ptr(E), ptr(norms), ptr(x_emb[b0 : b0 + nb]),
+                        ptr(out[b0 : b0 + nb]), R, d, Tp, n_out, nblk, nb,
+                        smem)
     return out
 
 

@@ -5,7 +5,9 @@ Port of :mod:`shadowing_tpu.ops.pallas_search`.
 * **Pass 1** (:func:`score_blockmin`): for every context, trajectory row and
   block of ``L = 128`` window starts, the minimum of the expansion score
   ``norms - 2 * cross``. On a CUDA tensor it launches the hand-written
-  kernel ``csrc/blockmin_toeplitz.cu``; on a CPU tensor it runs the plain
+  kernel ``csrc/blockmin_toeplitz.cu`` (fp32 FMAs in tap order,
+  register-tiled; held to the plain version within 1e-5 of max|score|, as
+  cuDNN's summation order is not fixed); on a CPU tensor it runs the plain
   PyTorch version (``conv1d`` plus the min-fold). There is no fallback
   between the two.
 * **Pass 2** (:func:`pass2_from_bmin`): select the ``cap`` best blocks per
@@ -19,6 +21,7 @@ Flat ids are ``traj * n_out + t`` in int64; blocks use the r-major id
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -30,13 +33,15 @@ from shadowing_tpu_torch.ops.topk import topk_min
 
 L = 128                   # window starts per block
 MAX_WIDTH = 3 * L + 1     # widest filter the engine routes to the kernels (385)
-_WARPS = L // 32
-_JRUN = 8                 # j-blocks per CUDA thread block (amortises the filter staging)
-_SMEM_LIMIT = 200 * 1024  # dynamic shared memory a launch may ask for
+_SMEM_LIMIT = 227 * 1024  # shared memory one block may use on an H100
+_SMEM_HALF = 113 * 1024   # ... and each of two blocks on one SM
 _SCRATCH = 256 << 20      # bytes of temporaries per chunk of the plain paths
+# the kernel's constants (csrc/blockmin_toeplitz.cu): starts per thread,
+# starts per tile, tiles in flight
+_P, _NST, _STAGES = 8, 256 * 8, 3
 
 TOEPLITZ = Kernel("blockmin_toeplitz", [ctypes.c_void_p] * 4
-                  + [ctypes.c_int] * 9)
+                  + [ctypes.c_int] * 8)
 
 
 def n_blocks(n_out: int) -> int:
@@ -61,6 +66,54 @@ def _fold_min(s: torch.Tensor, n_out: int) -> torch.Tensor:
     nblk = n_blocks(n_out)
     s = F.pad(s, (0, nblk * L - n_out), value=float("inf"))
     return s.unflatten(-1, (nblk, L)).amin(-1)
+
+
+@dataclass(frozen=True)
+class ToeplitzPlan:
+    """The launch plan of kernel 1, mirrored by ``make_plan`` in
+    ``csrc/blockmin_toeplitz.cu`` (which refuses a launch whose shared
+    memory differs): taps padded to ``wp``, ``seg`` samples per channel and
+    tile (``_NST`` starts plus the halo), ``cg`` channels per slot of the
+    ring of ``_STAGES`` slots, ``tiles`` (row, 2,048-start) tiles, and the
+    context chunks, one launch each.
+
+    Where all ``C`` channels of a tile fit the ring beside one context's
+    filter, ``cg = C`` and a chunk holds as many filters as fit beside it.
+    Otherwise the channels go through the ring in groups of ``cg``, each
+    slot with its group's taps of a context pair, sized for two blocks per
+    SM, and a chunk holds at most two contexts."""
+
+    wp: int
+    seg: int
+    cg: int
+    tiles: int
+    chunks: Tuple[Tuple[int, int], ...]   # (first context, contexts)
+    smem_bytes: Tuple[int, ...]           # per launch
+
+
+def toeplitz_plan(R: int, C: int, w: int, n_out: int, B: int) -> ToeplitzPlan:
+    """Taps, channel groups, tiles, context chunks and shared memory of one
+    call."""
+    wp = -(-w // _P) * _P
+    seg = _NST + wp
+    fixed = 4 * _STAGES * (C * seg + _NST)
+    per_ctx = 4 * C * wp
+    bc = (_SMEM_LIMIT - fixed) // per_ctx
+    if bc >= 1:
+        cg = C
+        smem = lambda nb: fixed + nb * per_ctx
+    else:
+        most = max((_SMEM_HALF // 4 // _STAGES - _NST) // (seg + 2 * wp), 1)
+        groups = -(-C // most)
+        cg, bc = -(-C // groups), 2
+        smem = lambda nb: 4 * _STAGES * (cg * (seg + 2 * wp) + _NST)
+    chunks = tuple((b0, min(bc, B - b0)) for b0 in range(0, B, bc))
+    smem_bytes = tuple(smem(nb) for _, nb in chunks)
+    if max(smem_bytes) > _SMEM_LIMIT:
+        raise ValueError(f"w={w}: the staged samples exceed the kernel's "
+                         f"{_SMEM_LIMIT} bytes of shared memory")
+    return ToeplitzPlan(wp, seg, cg, R * -(-n_blocks(n_out) * L // _NST),
+                        chunks, smem_bytes)
 
 
 def score_blockmin_plain(y: torch.Tensor, norms: torch.Tensor,
@@ -102,22 +155,14 @@ def score_blockmin(y: torch.Tensor, norms: torch.Tensor,
     if y.device.type != "cuda":
         raise ValueError(f"no blockmin_toeplitz kernel for device {y.device}")
     nblk = n_blocks(n_out)
+    plan = toeplitz_plan(R, C, w, n_out, B)
+    if plan.tiles >= 2**31:
+        raise ValueError(f"R={R} rows exceed the kernel's tile count")
     out = torch.empty((B, R, nblk), dtype=torch.float32, device=y.device)
-    seg_bytes = 4 * C * (L + w - 1)
-    per_ctx = 4 * (C * w + _WARPS)
-    bc = (_SMEM_LIMIT - seg_bytes) // per_ctx
-    if bc < 1:
-        raise ValueError(f"C={C}, w={w}: the staged segment exceeds the "
-                         f"kernel's {_SMEM_LIMIT} bytes of shared memory")
-    jrun = min(_JRUN, nblk)
-    if R * -(-nblk // jrun) >= 2**31:
-        raise ValueError(f"R={R} rows exceed the kernel's grid")
-    for b0 in range(0, B, bc):
-        gc = g[b0 : b0 + bc]
-        nb = gc.shape[0]
-        TOEPLITZ.launch(ptr(y), ptr(norms), ptr(gc), ptr(out[b0 : b0 + nb]),
-                        R, C, T, n_out, nblk, nb, w, jrun,
-                        seg_bytes + nb * per_ctx)
+    for (b0, nb), smem in zip(plan.chunks, plan.smem_bytes):
+        TOEPLITZ.launch(ptr(y), ptr(norms), ptr(g[b0 : b0 + nb]),
+                        ptr(out[b0 : b0 + nb]), R, C, T, n_out, nblk, nb, w,
+                        smem)
     return out
 
 

@@ -59,22 +59,99 @@ def test_blockmin_toeplitz(cuda, R, C, T, w, n_out, B):
     check(got, search.score_blockmin_plain(y, norms, g))
 
 
+@pytest.mark.parametrize("w", [1, 20, 126, 385])
+@pytest.mark.parametrize("C", [1, 3])
+def test_blockmin_toeplitz_widths(cuda, w, C):
+    """Every tap count against the 8-tap register chunks, one and three
+    channels, a pair of contexts and a single one, rows of T = 4,100
+    (16-byte copies) and a ragged n_out."""
+    R, T = 45, 4100
+    y, norms, g = problem(cuda, R, C, T, w, T - w - 7, 3, seed=w + C)
+    norms[[1, R - 2]] = float("inf")
+    check(search.score_blockmin(y, norms, g),
+          search.score_blockmin_plain(y, norms, g))
+
+
+@pytest.mark.parametrize("T,B", [(2201, 1), (3001, 7), (777, 50)])
+def test_blockmin_toeplitz_ragged_rows_and_chunks(cuda, T, B):
+    """T not a multiple of 4 (4-byte copies), a start count just past one
+    2,048-start tile, and B = 50 filters of 385 taps over three channels:
+    more than one context chunk."""
+    C, w = (3, 385) if B == 50 else (2, 33)
+    y, norms, g = problem(cuda, 33, C, T, w, T - w + 1, B, seed=T)
+    plan = search.toeplitz_plan(33, C, w, T - w + 1, B)
+    assert (len(plan.chunks) > 1) == (B == 50)
+    before = search.TOEPLITZ.launches
+    got = search.score_blockmin(y, norms, g)
+    assert search.TOEPLITZ.launches == before + len(plan.chunks)
+    check(got, search.score_blockmin_plain(y, norms, g))
+
+
+@pytest.mark.parametrize("C,w,B,T", [
+    (7, 20, 3, 4100),
+    (9, 20, 5, 4100),
+    (16, 20, 1, 2201),              # 4-byte copies
+    (8, 385, 3, 3001),
+    (57, 385, 2, 900),              # the most channels the first kernel took at w = 385
+])
+def test_blockmin_toeplitz_wide_channels(cuda, C, w, B, T):
+    """Past a whole tile's shared memory the channels go through the ring in
+    groups, a context pair a launch; the sums run on from group to group."""
+    R = 37
+    y, norms, g = problem(cuda, R, C, T, w, T - w - 5, B, seed=C + w)
+    norms[[2, R - 1]] = float("inf")
+    plan = search.toeplitz_plan(R, C, w, T - w - 5, B)
+    assert (plan.cg < C) == (C > 7)
+    before = search.TOEPLITZ.launches
+    got = search.score_blockmin(y, norms, g)
+    assert search.TOEPLITZ.launches == before + len(plan.chunks)
+    check(got, search.score_blockmin_plain(y, norms, g))
+
+
+def factored_problem(cuda, R, d, n_out, B, scale=1.0, seed=0):
+    rng = np.random.default_rng(seed)
+    y, norms, _ = problem(cuda, R, 1, n_out + 40, 20, n_out, 1, seed=seed)
+    y, norms = y * scale, norms * scale ** 2
+    kernel = torch.from_numpy(rng.normal(size=(d, 1, 20)).astype(np.float32))
+    x_emb = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32) * scale)
+    E = factored.build_factored(y, kernel.to(cuda), n_out)
+    norms[3] = float("inf")
+    return E, norms, x_emb.to(cuda)
+
+
 @pytest.mark.parametrize("R,d,n_out,B", [
     (300, 7, 600, 9),
     (129, 20, 1000, 64),
     (50, 48, 257, 200),             # two launches of contexts
 ])
 def test_blockmin_factored(cuda, R, d, n_out, B):
-    rng = np.random.default_rng(d)
-    y, norms, _ = problem(cuda, R, 1, n_out + 40, 20, n_out, 1, seed=d)
-    kernel = torch.from_numpy(rng.normal(size=(d, 1, 20)).astype(np.float32))
-    x_emb = torch.from_numpy(rng.normal(size=(B, d)).astype(np.float32))
-    E = factored.build_factored(y, kernel.to(cuda), n_out)
-    norms[3] = float("inf")
+    E, norms, x_emb = factored_problem(cuda, R, d, n_out, B, seed=d)
     before = factored.FACTORED.launches
-    got = factored.score_blockmin_factored(E, norms, x_emb.to(cuda))
+    got = factored.score_blockmin_factored(E, norms, x_emb)
     assert factored.FACTORED.launches == before + -(-B // 128)
-    check(got, factored.score_blockmin_factored_plain(E, norms, x_emb.to(cuda)))
+    check(got, factored.score_blockmin_factored_plain(E, norms, x_emb))
+
+
+@pytest.mark.parametrize("B", [1, 8, 9, 63, 64, 65, 128, 200])
+@pytest.mark.parametrize("d", [1, 7, 20, 33, 48])
+def test_blockmin_factored_tiling_edges(cuda, d, B):
+    """Every last-pass width (8 to 64 contexts, one and two launches), one
+    to six 8-deep K-steps with zero-padded dims (odd step counts reuse the
+    first A buffer across m-tiles), R and n_out off every tile, a barred
+    row."""
+    E, norms, x_emb = factored_problem(cuda, 37, d, 333, B, seed=B + d)
+    check(factored.score_blockmin_factored(E, norms, x_emb),
+          factored.score_blockmin_factored_plain(E, norms, x_emb))
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1e3])
+@pytest.mark.parametrize("d", [20, 48])
+def test_blockmin_factored_error_is_relative(cuda, d, scale):
+    """The 3xTF32 split's error scales with the data, so the 1e-5 gate
+    holds at 1e-3 and at 1e3 times the smoke's statistics."""
+    E, norms, x_emb = factored_problem(cuda, 64, d, 700, 64, scale, seed=d)
+    check(factored.score_blockmin_factored(E, norms, x_emb),
+          factored.score_blockmin_factored_plain(E, norms, x_emb))
 
 
 def agree_up_to_ties(d_a, i_a, d_b, i_b, atol=1e-6, rtol=1e-5):
@@ -147,10 +224,12 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     y, norms, g = problem(cuda, 8, 1, 300, 20, 200, 1)
     with pytest.raises(ValueError, match="is on cpu"):
         search.score_blockmin(y, norms.cpu(), g)
+    # any channel count is grouped into the ring; a single channel of a
+    # filter far past MAX_WIDTH still does not fit
     with pytest.raises(ValueError, match="shared memory"):
-        search.score_blockmin(torch.zeros((2, 200, 3000), device=cuda),
+        search.score_blockmin(torch.zeros((2, 1, 12100), device=cuda),
                               torch.zeros((2, 10), device=cuda),
-                              torch.zeros((1, 200, 385), device=cuda))
+                              torch.zeros((1, 1, 12000), device=cuda))
     E = torch.zeros((8, 49, 256), device=cuda)
     with pytest.raises(ValueError, match="MAX_DIM"):
         factored.score_blockmin_factored(E, norms[:, :256].contiguous(),

@@ -162,3 +162,175 @@ def test_wrappers_never_fall_back_off_the_cpu():
 def test_e_bytes():
     # 32768 rows, 4057 starts (32 blocks), d = 20, fp32
     assert factored.e_bytes(32768, 4057, 20) == 32768 * 20 * 32 * 128 * 4
+
+
+# ---- launch plans of the CUDA kernels (pure Python, mirrored in csrc/) ----
+
+SMEM_BLOCK = 227 * 1024    # shared memory one block may use on an H100
+SMEM_SM = 228 * 1024       # shared memory of one SM (1 KB of it per block is reserved)
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 4, 7, 9, 16, 64, 300])
+def test_toeplitz_plan_fits_and_covers(C):
+    """Every tap count up to MAX_WIDTH and context counts from 1 to 300:
+    the plan fits one block's shared memory, pads the taps to whole 8-tap
+    register chunks, and its chunks, channel groups and tiles cover every
+    context, channel and start. Channels are grouped (at most two contexts
+    a launch, two blocks per SM) exactly where a whole tile does not fit
+    beside one filter."""
+    R = 3
+    for w in range(1, search.MAX_WIDTH + 1):
+        for n_out in (1, 127, 2048, 4057):
+            for B in (1, 7, 50, 300):
+                plan = search.toeplitz_plan(R, C, w, n_out, B)
+                assert plan.wp % 8 == 0 and 0 <= plan.wp - w < 8
+                assert plan.seg == 2048 + plan.wp
+                starts = [b0 for b0, _ in plan.chunks]
+                assert starts == list(np.cumsum([0] + [n for _, n in plan.chunks])[:-1])
+                assert sum(n for _, n in plan.chunks) == B
+                assert max(plan.smem_bytes) <= SMEM_BLOCK
+                whole = 4 * (3 * (C * plan.seg + 2048) + C * plan.wp)
+                assert (plan.cg < C) == (whole > SMEM_BLOCK)
+                if plan.cg == C:
+                    assert plan.smem_bytes[0] == 4 * (
+                        plan.chunks[0][1] * C * plan.wp + 3 * (C * plan.seg + 2048))
+                else:
+                    groups = -(-C // plan.cg)
+                    assert (groups - 1) * plan.cg < C <= groups * plan.cg
+                    assert max(n for _, n in plan.chunks) <= 2
+                    assert set(plan.smem_bytes) == {4 * 3 * (
+                        plan.cg * (plan.seg + 2 * plan.wp) + 2048)}
+                    assert 2 * (plan.smem_bytes[0] + 1024) <= SMEM_SM
+                assert plan.tiles % R == 0 and plan.tiles // R * 2048 >= n_out
+                assert (plan.tiles // R - 1) * 2048 < n_out
+
+
+@pytest.mark.parametrize("C,w,cg", [(8, 20, 8), (9, 20, 3), (16, 20, 3),
+                                    (6, 385, 6), (7, 385, 2), (57, 385, 2),
+                                    (200, 385, 2), (306, 20, 3)])
+def test_toeplitz_plan_groups_wide_channels(C, w, cg):
+    """Up to 8 channels at w = 20 and 6 at w = 385 a whole tile fits; past
+    that the channels are grouped, so every C that the first kernel took
+    (up to 306 at w = 20 and 57 at w = 385 in 200 KB) is still planned."""
+    plan = search.toeplitz_plan(4, C, w, 1000, 5)
+    assert plan.cg == cg
+    if cg < C:
+        assert [n for _, n in plan.chunks] == [2, 2, 1]
+
+
+@pytest.mark.parametrize("d", range(1, factored.MAX_DIM + 1))
+def test_factored_plan_fits_and_covers(d):
+    """Every embedding width and 1 to 300 contexts: K is padded to whole
+    8-deep TF32 steps, launches of at most 128 contexts cover B, each
+    launch's passes (64 contexts, a last of 8, 16, 32 or 64) cover its
+    contexts, and the shared memory fits one block."""
+    for B in range(1, 301):
+        plan = factored.factored_plan(5, d, 333, B)
+        assert 8 * plan.k8 >= d > 8 * (plan.k8 - 1)
+        assert [b0 for b0, _ in plan.chunks] == list(range(0, B, 128))
+        assert sum(n for _, n in plan.chunks) == B
+        for (_, nb), (full, tail_nt), smem in zip(plan.chunks, plan.passes,
+                                                   plan.smem_bytes):
+            assert tail_nt in (0, 1, 2, 4, 8)
+            bp = 64 * full + 8 * tail_nt
+            assert nb <= bp < nb + 8 * max(tail_nt // 2, 1)
+            assert smem == 4 * (2 * bp * 8 * plan.k8 + 3 * 8 * plan.k8 * 136
+                                + 3 * 128 + 8 * bp)
+            assert smem <= SMEM_BLOCK
+        assert plan.tiles == 5 * 3
+
+
+def test_factored_plan_main_shape_leaves_room_for_four_blocks():
+    """At the main path's shape (64 contexts, d = 20) four blocks fit on one
+    SM: the kernel is latency-bound per block and needs them in flight."""
+    smem = factored.factored_plan(32768, 20, 4057, 64).smem_bytes[0]
+    assert 4 * (smem + 1024) <= SMEM_SM
+
+
+def test_factored_plan_refuses_wide_embeddings():
+    with pytest.raises(ValueError, match="MAX_DIM"):
+        factored.factored_plan(5, factored.MAX_DIM + 1, 333, 8)
+
+
+# ---- the 3xTF32 split of kernel 2, emulated in numpy -----------------------
+
+def tf32(a, rna):
+    """float32 -> TF32 (10 mantissa bits): the nearest value, ties away from
+    zero (``rna``), or the value truncated toward zero."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    if rna:
+        bits = bits + np.uint32(0x1000)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def emulate_factored(E, norms, x, terms=3):
+    """Kernel 2's arithmetic: E and x split into TF32 hi (nearest) + lo
+    (truncated), per 8-deep K-step the products lo.hi, hi.lo and hi.hi (each
+    MMA exact, rounded once into the float32 accumulator), then ``norm - 2
+    acc`` and the minimum over each 128-start block. ``terms=1`` is a
+    single TF32 pass."""
+    R, d, Tp = E.shape
+    n_out = norms.shape[1]
+    Eh = tf32(E, rna=True)
+    Eo = tf32(E - Eh, rna=False)
+    xh = tf32(x, rna=True)
+    xo = tf32(x - xh, rna=False)
+    pairs = [(Eh, xh)] if terms == 1 else [(Eo, xh), (Eh, xo), (Eh, xh)]
+    acc = np.zeros((R, x.shape[0], Tp), np.float32)
+    for k0 in range(0, d, 8):
+        for e, xx in pairs:
+            step = np.einsum("bk,rkt->rbt", xx[:, k0 : k0 + 8].astype(np.float64),
+                             e[:, k0 : k0 + 8].astype(np.float64))
+            acc = (acc + step).astype(np.float32)
+    s = np.full((R, x.shape[0], Tp), np.inf, np.float32)
+    s[..., :n_out] = (norms[:, None, :] - np.float32(2) * acc[..., :n_out])
+    return s.reshape(R, x.shape[0], -1, L).min(-1).transpose(1, 0, 2)
+
+
+def smoke_factored_problem(scale, R=48, T=700, B=8, seed=11):
+    """The smoke's statistics: returns * 0.011, Identity(20), contexts that
+    are windows of the data, all times ``scale``."""
+    rng = np.random.default_rng(seed)
+    y = (rng.standard_normal((R, 1, T)) * 0.011 * scale).astype(np.float32)
+    w = 20
+    n_out = T - w - 20 + 1
+    kernel = np.eye(w, dtype=np.float32)[:, None, :]
+    E = factored.build_factored(t(y), t(kernel), n_out).numpy()
+    norms = np.lib.stride_tricks.sliding_window_view(
+        y[:, 0].astype(np.float64) ** 2, w, axis=-1)[:, :n_out].sum(-1)
+    rows, starts = rng.integers(0, R, B), rng.integers(0, n_out, B)
+    x = np.stack([y[r, 0, s : s + w] for r, s in zip(rows, starts)])
+    return y, kernel, E, norms.astype(np.float32), x, n_out
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e3])
+def test_3xtf32_split_keeps_fp32_class_error(scale):
+    """The split's block minima are within 1e-6 of max|score| of the plain
+    fp32 version, a tenth of the card gate's 1e-5, at the smoke's
+    statistics and at 1e3 times them (the error is relative); a single
+    TF32 pass would fail the gate."""
+    _, _, E, norms, x, _ = smoke_factored_problem(scale)
+    want = factored.score_blockmin_factored(t(E), t(norms), t(x)).numpy()
+    scale_s = np.abs(want).max()
+    err3 = np.abs(emulate_factored(E, norms, x) - want).max() / scale_s
+    err1 = np.abs(emulate_factored(E, norms, x, terms=1) - want).max() / scale_s
+    assert err3 <= 1e-6
+    assert err1 > 1e-5
+
+
+def test_3xtf32_split_matches_pallas_bf16x3():
+    """At the smoke's statistics the emulated kernel holds
+    test_k2_plain_matches_pallas's tolerance against JAX's bf16x3 kernel,
+    as the plain version does."""
+    y, kernel, E, norms, x, n_out = smoke_factored_problem(1.0)
+    R = y.shape[0]
+    y3, n2 = pallas_search._pad_views(jnp.asarray(y), jnp.asarray(norms),
+                                      n_out, 20)
+    E9, n4 = pallas_factored.build_factored(y3, n2, jnp.asarray(kernel))
+    want = np.asarray(pallas_factored.score_blockmin_factored(
+        E9, n4, jnp.asarray(x), interpret=True)).transpose(0, 2, 1)
+    nblk = -(-n_out // L)
+    got = emulate_factored(E, norms, x)
+    np.testing.assert_allclose(got, want[:, :R, :nblk], rtol=1e-4, atol=2e-5)
+    plain = factored.score_blockmin_factored(t(E), t(norms), t(x)).numpy()
+    np.testing.assert_allclose(plain, want[:, :R, :nblk], rtol=1e-4, atol=2e-5)
