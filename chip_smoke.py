@@ -44,7 +44,13 @@ drives the main path at the README workflow scale (32,768 trajectories x
     on-card direct oracle;
 14. the generation CLI as users run it: two job-array tasks as
     subprocesses, the restart skip, ``batch_generations`` and a load
-    through ``TimeSeriesDataset``.
+    through ``TimeSeriesDataset``;
+15. the mesh: two ranks of ``torchrun`` (gloo, both on the card) each read
+    their half of phase 4's dataset from disk and search it as one through
+    ``PathShadowing(mesh=data_mesh(), n_trajectories=R)``: phase 4's
+    ``predict_and_smile`` (K1 on every rank) and phase 5's ``predict`` (K2)
+    equal phases 4-5, the forced redo, then ``sharded_synthesis_step`` and
+    ``synthesize_batch(mesh=)`` against the same steps in one process.
 
 Every check raises on failure. The line before the last is a JSON object
 of the kernels: launch counts summed over every path, and per shape the
@@ -55,6 +61,9 @@ the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
+import signal
+import socket
 import subprocess
 import sys
 import time
@@ -86,6 +95,11 @@ R_SCAT, SCAT_BATCH = 8192, 1024
 SCAT_J, SCAT_T, SCAT_TOL, SCAT_ITERS = 9, 4096, 1e-2, 1000
 SCAT_START, SCAT_END = "03-01-2000", "31-12-2014"
 CLI_R, CLI_BATCH = 2048, 256  # phase 14: two tasks of 1,024 paths
+#: phase 15: ranks of torchrun on the card, and the synthesis they run
+#: (a few dozen seeds and steps of phase 13's J and T)
+MESH_RANKS, MESH_TIMEOUT = 2, 400
+MESH_SEEDS, MESH_ITERS, MESH_STEPS, MESH_SEED = 32, 40, 3, 5
+MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh"
 PDV_PARAMS = dict(lams1=[55.0, 10.0], lams2=[20.0, 3.0], thetas=[0.25, 0.5],
                   betas=[0.04, -0.12, 0.75])
 
@@ -451,7 +465,10 @@ def main_path(dataset, device) -> dict:
         f"equal phase 4's; "
         f"{[s for s in eng.routing_log if s.startswith('redo')]}")
     return {"K1": k1_launches, "K2": k2_launches, "e2e_warm_s": warm,
-            "predict64_warm_s": warm64, "e_build_s": e_build}
+            "predict64_warm_s": warm64, "e_build_s": e_build,
+            # what phase 15 is held to
+            "ctx": ctx, "ctx64": ctx64, "ids": i, "pred64": pred,
+            "ids64": i_fac}
 
 
 # --------------------------------------------------------------------------
@@ -1064,6 +1081,272 @@ def generation_cli(device) -> None:
         f"{data.std():.5f}")
 
 
+# --------------------------------------------------------------------------
+# phase 15: the mesh on torch.distributed (fifth slice)
+# --------------------------------------------------------------------------
+
+def mesh_references(path: dict, device) -> dict:
+    """Phase 15, before the launch: the ranks' inputs on disk, and the
+    single-process synthesis the ranks are held to."""
+    import torch
+
+    from shadowing_tpu_torch import SPDaily
+    from shadowing_tpu_torch.models.scattering import build_filter_bank
+    from shadowing_tpu_torch.models.scattering.generate import target_stats
+    from shadowing_tpu_torch.models.scattering.synthesis import synthesize_batch
+    from shadowing_tpu_torch.parallel import sharding as psh
+
+    target = target_stats(SPDaily(start=SCAT_START, end=SCAT_END).dlnx[0, 0],
+                          SCAT_J)
+    rng = np.random.default_rng(6)
+    shape = (MESH_SEEDS, SCAT_T)
+    z, m, v = (rng.standard_normal(shape).astype(np.float32),
+               (rng.standard_normal(shape) * 1e-3).astype(np.float32),
+               (np.abs(rng.standard_normal(shape)) * 1e-6).astype(np.float32))
+    np.savez(MESH_DIR / "inputs.npz", ctx=path["ctx"], ctx64=path["ctx64"],
+             target=target.numpy(), z=z, m=m, v=v)
+    bank = build_filter_bank(SCAT_T, SCAT_J)
+    gen = lambda: torch.Generator(device=device).manual_seed(MESH_SEED)
+    kw = dict(target=target, bank=bank, batch=MESH_SEEDS, tol=SCAT_TOL)
+    wl = {}
+    ref = {"syn_init": synthesize_batch(gen(), max_iterations=0, **kw)[0],
+           "syn": synthesize_batch(gen(), max_iterations=MESH_ITERS,
+                                   work_log=wl, **kw)}
+    ref["syn_steps"] = (wl["seed_steps"], wl["steps"])
+    zs, ms, vs = (torch.from_numpy(a).to(device) for a in (z, m, v))
+    psi = torch.as_tensor(bank.psi_hat, device=device)
+    losses = []
+    for i in range(MESH_STEPS):
+        zs, ms, vs, loss = psh.sharded_synthesis_step(
+            zs, ms, vs, i, target.to(device), psi, SCAT_J,
+            psh.local_mesh(device))
+        losses.append(float(loss))
+    ref["step"] = (zs.cpu().numpy(), np.array(losses))
+    return ref
+
+
+def mesh_worker(out: Path, device: str) -> None:
+    """Phase 15, one rank (``torchrun`` runs this script with
+    ``--mesh-worker``): its own rows of the phase-4 dataset, read from disk,
+    the main path on the mesh, the synthesis on its seeds; its results and
+    counts go to ``out``."""
+    import torch
+
+    from shadowing_tpu_torch import (
+        Identity,
+        PathShadowing,
+        PredictionContext,
+        RelativeMSE,
+        realized_variance,
+    )
+    from shadowing_tpu_torch.models.scattering import build_filter_bank
+    from shadowing_tpu_torch.models.scattering.synthesis import synthesize_batch
+    from shadowing_tpu_torch.ops.factored import FACTORED
+    from shadowing_tpu_torch.ops.search import TOEPLITZ
+    from shadowing_tpu_torch.parallel import (
+        LAST_MERGE_PAYLOAD,
+        data_mesh,
+        host_row_range,
+        shard_dataset_from_local,
+        sharded_synthesis_step,
+        task_split,
+    )
+
+    mesh = data_mesh(device=device)
+    dev, rank = mesh.device, mesh.data_pos
+    inp = np.load(out / "inputs.npz")
+    data = np.load(out / "dataset.npy", mmap_mode="r")
+    Rn = data.shape[0]
+    start, stop = host_row_range(Rn, mesh)
+    t0 = time.perf_counter()
+    y = shard_dataset_from_local(data[start : min(stop, Rn)], mesh, Rn)
+    info = {"rank": rank, "task_split": task_split(), "device": str(dev),
+            "backend": torch.distributed.get_backend(), "rows": [start, stop],
+            "load_s": time.perf_counter() - t0}
+    eng = PathShadowing(Identity(W), RelativeMSE(), y, PredictionContext(H),
+                        mesh=mesh, n_trajectories=Rn)
+    to_predict = lambda x: realized_variance(x[:, :, 0, :], Ts=TS, vol=False)
+
+    def driven(name, fn):
+        """The counts zeroed before one driven path and read after it."""
+        TOEPLITZ.launches = FACTORED.launches = 0
+        res, first, warm = first_and_warm(fn, 5)
+        info[name] = {"first_s": first, "warm_s": warm,
+                      "K1": TOEPLITZ.launches, "K2": FACTORED.launches}
+        return res
+
+    ctx, ctx64 = inp["ctx"], inp["ctx64"]
+    res = {}
+    vars_, _, smiles = driven("k1", lambda: eng.predict_and_smile(
+        ctx, k=K, to_predict=to_predict, Ts=TS, Ms=MS, eta=0.1,
+        eta_smile=0.075))
+    res["vars"] = vars_
+    res["ids"] = eng.shadow(ctx, k=K)[2]
+    res["ids_direct"] = eng.shadow(ctx, k=K, method="direct")[2]
+    d0, _, i0 = eng.shadow(np.array(data[0, 0, :W]), k=4)
+    res["self"] = np.array([d0[0, 0], *i0[0, 0]])
+    res["pred64"], _ = driven("k2", lambda: eng.predict(
+        ctx64, k=K, to_predict=to_predict, eta=0.1))
+    res["ids64"] = eng.shadow(ctx64, k=K)[2]
+    info["factored_grant"] = [s for s in eng.routing_log
+                              if s.startswith("factored pass-1 routed")]
+    info["redo_before"] = [s for s in eng.routing_log if s.startswith("redo")]
+    res["ids_redo"] = eng.shadow_device(ctx, k=K,
+                                        tournament_cap=K // 128 // 2)[2].cpu()
+    info["redo_contexts"] = eng.last_metrics["redo_contexts"]
+    info["mesh"] = eng.last_metrics["mesh"]
+    info["payload"] = {str(k): v for k, v in LAST_MERGE_PAYLOAD.items()}
+    del eng, y
+    torch.cuda.empty_cache()
+    # the collectives of one 64-context search, alone (wall ms, median of 5)
+    vals, ids = (torch.zeros((64, K), dtype=t, device=dev)
+                 for t in (torch.float32, torch.int64))
+    paths = torch.zeros((64, K, 1, W + H), device=dev)
+    info["collectives_ms"] = {
+        "merge": 1e3 * median_wall(lambda: (mesh.all_gather(vals),
+                                            mesh.all_gather(ids))),
+        "extraction": 1e3 * median_wall(lambda: mesh.all_reduce(paths))}
+    del vals, ids, paths
+
+    target = torch.from_numpy(inp["target"])
+    bank = build_filter_bank(SCAT_T, SCAT_J)
+    gen = lambda: torch.Generator(device=dev).manual_seed(MESH_SEED)
+    kw = dict(target=target, bank=bank, batch=MESH_SEEDS, tol=SCAT_TOL,
+              mesh=mesh)
+    res["syn_init"] = synthesize_batch(gen(), max_iterations=0, **kw)[0]
+    wl = {}
+    t0 = time.perf_counter()
+    res["syn"], res["syn_rms"] = synthesize_batch(
+        gen(), max_iterations=MESH_ITERS, work_log=wl, **kw)
+    info["syn"] = {"wall_s": time.perf_counter() - t0,
+                   "steps": [wl["seed_steps"], wl["steps"]]}
+    rows = MESH_SEEDS // mesh.n_data
+    zs, ms, vs = (torch.from_numpy(inp[n][rank * rows : (rank + 1) * rows]
+                                   ).to(dev) for n in ("z", "m", "v"))
+    psi = torch.as_tensor(bank.psi_hat, device=dev)
+    losses = []
+    for i in range(MESH_STEPS):
+        zs, ms, vs, loss = sharded_synthesis_step(
+            zs, ms, vs, i, target.to(dev), psi, SCAT_J, mesh)
+        losses.append(float(loss))
+    res["step"] = mesh.all_gather(zs).reshape(MESH_SEEDS, SCAT_T)
+    res["step_loss"] = np.array(losses)
+    info["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    np.savez(out / f"rank{rank}.npz",
+             **{k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                for k, v in res.items()})
+    (out / f"rank{rank}.json").write_text(json.dumps(info))
+    torch.distributed.destroy_process_group()
+
+
+def mesh_phase(path: dict, device) -> dict:
+    """Phase 15: two ranks of ``torchrun`` on the card search their halves
+    of the phase-4 dataset as one; returns the launches summed over the
+    ranks."""
+    import torch
+
+    t0 = time.perf_counter()
+    ref = mesh_references(path, device)
+    t_ref = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    for stale in MESH_DIR.glob("rank*"):
+        stale.unlink()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           str(MESH_RANKS), "--master-addr", "127.0.0.1", "--master-port",
+           str(port), str(Path(__file__).resolve()), "--mesh-worker",
+           str(MESH_DIR), device.type]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=MESH_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 15: the {MESH_RANKS}-rank launch failed "
+                             f"(rc {proc.returncode}):\n{out[-6000:]}")
+    ranks = [(json.loads((MESH_DIR / f"rank{r}.json").read_text()),
+              dict(np.load(MESH_DIR / f"rank{r}.npz")))
+             for r in range(MESH_RANKS)]
+    (info0, res0) = ranks[0]
+    for r, (info, res) in enumerate(ranks):
+        for name in res:
+            if not np.array_equal(res[name], res0[name]):
+                raise AssertionError(f"phase 15: rank {r} differs from rank "
+                                     f"0 in {name}")
+        if info["task_split"] != [MESH_RANKS, r]:
+            raise AssertionError(f"rank {r}: task_split {info['task_split']}")
+        for tag, kernel in (("k1", "K1"), ("k2", "K2")):
+            if info[tag][kernel] == 0:
+                raise AssertionError(f"rank {r}: the mesh path never "
+                                     f"launched {kernel}")
+        if not info["factored_grant"] or info["redo_before"] or \
+                info["redo_contexts"] < 1:
+            raise AssertionError(f"rank {r}: routing {info['factored_grant']}"
+                                 f", redo {info['redo_before']}, forced redo "
+                                 f"{info['redo_contexts']}")
+    pred_rel = float(np.abs(res0["pred64"] / path["pred64"] - 1).max())
+    z_init0 = ref["syn_init"].cpu().numpy()
+    z_syn0, rms0 = ref["syn"][0].cpu().numpy(), ref["syn"][1]
+    syn_err = float(np.abs(res0["syn"] - z_syn0).max())
+    step_frac = float((np.abs(res0["step"] - ref["step"][0]) <= 1e-4).mean())
+    loss_rel = float(np.abs(res0["step_loss"] / ref["step"][1] - 1).max())
+    checks = {
+        "K1 ids = phase 4's": np.array_equal(res0["ids"], path["ids"]),
+        "= the direct oracle's": np.array_equal(res0["ids_direct"],
+                                                path["ids"]),
+        "self-match 0.0 at (0, 0)": tuple(res0["self"]) == (0.0, 0.0, 0.0),
+        "K2 ids = phase 5's": np.array_equal(res0["ids64"], path["ids64"]),
+        f"predictions = phase 5's to {pred_rel:.1e}": pred_rel <= 1e-6,
+        "forced redo ids = phase 4's": np.array_equal(res0["ids_redo"],
+                                                      path["ids"]),
+        "synthesis start = mesh=None's": np.array_equal(res0["syn_init"],
+                                                        z_init0),
+        f"synthesis rows within {syn_err:.1e}": syn_err <= 1e-3,
+        "same schedule": info0["syn"]["steps"] == list(ref["syn_steps"]),
+        f"step losses within {loss_rel:.1e}": loss_rel <= 1e-3,
+        f"step z within 1e-4 at {100 * step_frac:.3f} %": step_frac >= 0.999,
+    }
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 15 checks failed: {failed}")
+    log(f"phase 15 mesh: {MESH_RANKS} ranks of torchrun on "
+        f"{info0['device']} ({info0['backend']}), rows {[i['rows'] for i, _ in ranks]}"
+        f" of {R} read from disk; launch {wall:.1f} s (references "
+        f"{t_ref:.1f} s before it); launches by rank "
+        f"{[{t: i[n][t] for n, t in (('k1', 'K1'), ('k2', 'K2'))} for i, _ in ranks]}")
+    for name, label, single in (("k1", f"predict_and_smile B=1, k={K}",
+                                 path["e2e_warm_s"]),
+                                ("k2", f"predict B=64, k={K}",
+                                 path["predict64_warm_s"])):
+        log(f"  {label}: first {info0[name]['first_s']:.3f} s, warm "
+            f"{[round(i[name]['warm_s'], 4) for i, _ in ranks]} s by rank "
+            f"(median of 5) vs one process {single:.4f} s (phases 4-5); two "
+            "ranks share the one card and cross through host copies (gloo), "
+            "so no speed-up is expected")
+    coll = info0["collectives_ms"]
+    log(f"  the collectives of one B=64 search alone (rank 0, wall, median "
+        f"of 5): merge all_gather of values and ids {coll['merge']:.2f} ms, "
+        f"extraction all_reduce of {64 * K * (W + H) * 4 / 1e6:.1f} MB "
+        f"{coll['extraction']:.2f} ms")
+    log(f"  merge payload per rank (bytes, by gathered shape): "
+        f"{info0['payload']}; peak allocated by rank "
+        f"{[round(i['peak_gib'], 2) for i, _ in ranks]} GiB; synthesis "
+        f"({MESH_SEEDS} seeds, {MESH_ITERS} steps) {info0['syn']['wall_s']:.2f}"
+        f" s, {info0['syn']['steps'][0]} seed-steps")
+    log(f"  checks: ranks agree; {'; '.join(checks)}; task_split = "
+        f"({MESH_RANKS}, rank)")
+    return {t: sum(i[n][t] for i, _ in ranks)
+            for n, t in (("k1", "K1"), ("k2", "K2"))}
+
+
 def main() -> int:
     import torch
 
@@ -1089,7 +1372,9 @@ def main() -> int:
     t0 = time.perf_counter()
     dataset = (np.random.default_rng(0).standard_normal((R, 1, T))
                * 0.011).astype(np.float32)
-    log(f"dataset {dataset.shape} float32 made in "
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    np.save(MESH_DIR / "dataset.npy", dataset)    # phase 15 reads it back
+    log(f"dataset {dataset.shape} float32 made and saved in "
         f"{time.perf_counter() - t0:.1f} s")
     y = torch.from_numpy(dataset).to(device)
     log("phase 3 kernel vs plain (median of 5 device times):")
@@ -1111,9 +1396,11 @@ def main() -> int:
     scattering_search(scattering_generation(device), device)
     torch.cuda.empty_cache()
     generation_cli(device)
-    launches = {n: path[n] + Launches.totals[n] for n in ("K1", "K2")}
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(path, device)
+    launches = {n: path[n] + Launches.totals[n] + mesh[n] for n in ("K1", "K2")}
     log(f"launches over every path: {launches} (phases 4-6 {path['K1']} K1, "
-        f"{path['K2']} K2; phases 7-14 {Launches.totals})")
+        f"{path['K2']} K2; phases 7-14 {Launches.totals}; phase 15 {mesh})")
     kernels = []
     for name, tag, source, replaces in (
             ("blockmin_toeplitz", "K1",
@@ -1139,4 +1426,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.path.insert(0, str(Path(__file__).resolve().parent))
+        mesh_worker(Path(sys.argv[2]), sys.argv[3])
+    else:
+        sys.exit(main())

@@ -61,6 +61,11 @@ _LAZY = {
     "ScatteringStats": "shadowing_tpu_torch.models.scattering",
     "FilterBank": "shadowing_tpu_torch.models.scattering",
     "build_filter_bank": "shadowing_tpu_torch.models.scattering",
+    # the mesh
+    "data_mesh": "shadowing_tpu_torch.parallel",
+    "shard_dataset": "shadowing_tpu_torch.parallel",
+    "sharded_fused_search": "shadowing_tpu_torch.parallel",
+    "sharded_synthesis_step": "shadowing_tpu_torch.parallel",
 }
 
 

@@ -9,7 +9,9 @@ autoregressive linear benchmark
 
 All dates are the context batch axis of one engine: they stream through
 :meth:`PathShadowing.predict` in chunks of about 64, so each chunk is one
-multi-context search (the factored pass-1 kernel at that size).
+multi-context search (the factored pass-1 kernel at that size). To go
+bigger, give the engine a mesh (:mod:`shadowing_tpu_torch.parallel`): each
+rank then searches its row shard and every rank returns the same result.
 """
 from __future__ import annotations
 

@@ -6,13 +6,16 @@ semantics: task ``tid`` of ``ntot`` generates ``R // ntot`` trajectories
 into a shared cache directory, independently restartable (an existing task
 file is skipped; an interrupted task resumes from its finished shards);
 ``batch_generations`` then regroups the task files for fast loading.
-``-ntot``/``-tid`` default to one task; ``--device`` picks the card
-(default ``cuda``) or ``cpu``.
+``-ntot``/``-tid`` default to the world size and the rank of a ``torchrun``
+launch (one task without one); ``--device`` picks the card (default
+``cuda``: each rank takes ``cuda:{LOCAL_RANK % device_count()}``) or ``cpu``.
 
 Example (single task):
     python -m shadowing_tpu_torch.cli.snp_generation -R 1024 -J 9 --epsilon 1e-2
 Job array (4 tasks):
     python -m shadowing_tpu_torch.cli.snp_generation -ntot 4 -tid $TASK_ID
+The same 4 tasks as one launch, one rank each:
+    torchrun --nproc-per-node 4 -m shadowing_tpu_torch.cli.snp_generation
 """
 from __future__ import annotations
 
@@ -24,9 +27,11 @@ import numpy as np
 
 def get_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("-ntot", type=int, default=1,
-                        help="total number of job-array tasks")
-    parser.add_argument("-tid", type=int, default=0, help="this task's id")
+    parser.add_argument("-ntot", type=int, default=None,
+                        help="total number of job-array tasks (default: the "
+                        "world size, 1 without torchrun)")
+    parser.add_argument("-tid", type=int, default=None,
+                        help="this task's id (default: the rank)")
     parser.add_argument("-J", type=int, default=9, help="number of scales")
     parser.add_argument("-R", type=int, default=32768,
                         help="total number of realizations (over all tasks)")
@@ -57,7 +62,7 @@ def get_args(argv=None):
                         help="where to synthesise: 'cuda' (default) or 'cpu'")
     parser.add_argument("-q", "--quiet", action="store_true")
     args = parser.parse_args(argv)
-    if not 0 <= args.tid < args.ntot:
+    if None not in (args.ntot, args.tid) and not 0 <= args.tid < args.ntot:
         parser.error(f"task id {args.tid} out of range for ntot={args.ntot}")
     return args
 
@@ -67,8 +72,10 @@ def main(argv=None):
     from shadowing_tpu_torch.array_types import as_numpy
     from shadowing_tpu_torch.data.snp import SPDaily
     from shadowing_tpu_torch.models.scattering import generate
+    from shadowing_tpu_torch.parallel import initialize, rank_device, task_split
 
-    ntot, tid = args.ntot, args.tid
+    initialize(args.device)
+    ntot, tid = task_split(args.ntot, args.tid)
     snp = SPDaily(start=args.start, end=args.end, path=args.data)
     r_task = args.R // ntot
     out_file = Path(args.cache) / f"task{tid:05d}_R{r_task}.npy"
@@ -92,7 +99,7 @@ def main(argv=None):
         seed=args.seed * ntot + tid,
         batch=args.batch,
         init=args.init,
-        device=args.device,
+        device=rank_device(args.device),
     )
     np.save(out_file, as_numpy(x_gen))
     print(f"wrote {out_file}: {tuple(x_gen.shape)}")

@@ -82,6 +82,7 @@ def generate(
     lr=None,
     init: str = "auto",
     shard_logs: Optional[list] = None,
+    mesh=None,
     *,
     device: Union[str, torch.device] = "cuda",
 ) -> torch.Tensor:
@@ -104,13 +105,26 @@ def generate(
     :param shard_logs: if a list, one dict per shard is appended: the
         shard's ``work_log`` and per-seed ``rms`` (or ``from_cache``), and
         its ``wall_s``
+    :param mesh: synthesise every shard data-parallel over the ranks of a
+        :class:`~shadowing_tpu_torch.parallel.Mesh` (or its size): same
+        schedule and results as ``mesh=None`` up to Adam-amplified float
+        rounding (see :func:`synthesize_batch`), the whole result on every
+        rank; the first rank writes the cache
     :param device: where the seeds are synthesised and the result lives:
-        ``"cuda"`` (default; raises without a card) or ``"cpu"``. The cache
-        tag includes its type (the CPU and CUDA generators draw different
-        streams).
+        ``"cuda"`` (default; raises without a card) or ``"cpu"``; with a
+        mesh, the mesh's device. The cache tag includes its type (the CPU
+        and CUDA generators draw different streams).
     :return: ``(R, 1, T)`` float32 log-returns on ``device``
     """
     del cuda
+    writer = True
+    if mesh is not None:
+        from shadowing_tpu_torch.parallel import Mesh, data_mesh
+
+        if not isinstance(mesh, Mesh):
+            mesh = data_mesh(int(mesh), device=device)
+        device = mesh.device
+        writer = mesh.data_pos == mesh.ctx_pos == 0
     device = resolve_device(device)
     if not gen_log_returns:
         raise NotImplementedError(
@@ -145,7 +159,11 @@ def generate(
         shard_file = (cache_dir / f"shard{i:05d}.npy"
                       if cache_dir is not None else None)
         log = {}
-        if load_cache and shard_file is not None and shard_file.exists():
+        cached = load_cache and shard_file is not None and shard_file.exists()
+        if mesh is not None:
+            # the ranks must agree: a synthesis ends in a collective
+            cached = bool(mesh.all_true(torch.tensor([cached], device=device)))
+        if cached:
             z = torch.from_numpy(np.load(shard_file)).to(device)
             log["from_cache"] = True
         else:
@@ -157,10 +175,10 @@ def generate(
                 generator, target, bank_gen, batch=batch,
                 max_iterations=max_iterations, tol=tol_optim, lr=lr,
                 verbose=verbose, checkpoint_path=ckpt, work_log=log,
-                init=init,
+                init=init, mesh=mesh,
             )
             log["rms"] = rms
-            if shard_file is not None:
+            if shard_file is not None and writer:
                 np.save(shard_file, as_numpy(z))
             if verbose:
                 done = min((i + 1) * batch, R)

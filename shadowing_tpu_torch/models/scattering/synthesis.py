@@ -27,7 +27,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from shadowing_tpu_torch.array_types import as_tensor, fp32_exact
+from shadowing_tpu_torch.array_types import as_numpy, as_tensor, fp32_exact
 from shadowing_tpu_torch.models.mrw import (
     _circulant_sqrt_spectrum,
     _omega_cov,
@@ -259,6 +259,7 @@ def synthesize_batch(
     work_log: dict = None,
     init: str = "auto",
     checkpoint_min_interval_s: float = 30.0,
+    mesh=None,
 ) -> Tuple[torch.Tensor, np.ndarray]:
     """Synthesise ``batch`` series matching ``target`` statistics on the
     generator's device, drawing every random number from ``generator``.
@@ -284,6 +285,17 @@ def synthesize_batch(
         by an MRW-style volatility envelope whose intermittency is picked
         per seed by initial loss (:func:`_calibrated_from_normals`);
         ``"coloured"``: the spectrum only; ``"white"``: unit normals
+    :param mesh: synthesise data-parallel over the ranks of a
+        :class:`~shadowing_tpu_torch.parallel.Mesh` (or its size), whose
+        ``data`` axis must divide ``batch``. Every rank draws the whole
+        batch's initial seeds from ``generator`` (seeded alike on every
+        rank) and keeps its rows, so the start is the one of ``mesh=None``;
+        each rank steps and retires its own rows on the same schedule, keeps
+        its own checkpoint (the position is added to the file name), and
+        one ``all_gather`` returns the whole batch on every rank. Series
+        agree with ``mesh=None`` up to float rounding, which differs with
+        the batch's size and which Adam amplifies (~1e-3 after tens of
+        steps).
     """
     t_start = time.monotonic()
     if init not in ("auto", "coloured", "white"):
@@ -292,6 +304,17 @@ def synthesize_batch(
     if lr is None:
         lr = default_lr_schedule(max_iterations)
     device = generator.device
+    n_pos, pos = 1, 0
+    if mesh is not None:
+        from shadowing_tpu_torch.parallel import Mesh, data_mesh
+
+        if not isinstance(mesh, Mesh):
+            mesh = data_mesh(int(mesh), device=device)
+        n_pos, pos = mesh.n_data, mesh.data_pos
+        if batch % n_pos:
+            raise ValueError(
+                f"batch {batch} must be a multiple of the mesh size {n_pos}")
+    rows = batch // n_pos                # this rank's seeds
     target = as_tensor(target).to(device=device, dtype=torch.float32)
     std = should_standardize(target)
     T, J = bank.T, bank.J
@@ -304,21 +327,26 @@ def synthesize_batch(
             z = _coloured_noise(generator, batch, T, target, psi, J)
         else:
             z = torch.randn((batch, T), generator=generator, device=device)
+    z = z[pos * rows : (pos + 1) * rows].clone() if n_pos > 1 else z
     m = torch.zeros_like(z)
     v = torch.zeros_like(z)
     t_init = time.monotonic() - t_start
 
     # ``rms_full`` holds each seed's RMS at its last boundary; retired seeds
     # keep the value they retired with
-    active = np.arange(batch)
-    rms_full = np.full(batch, np.inf, np.float32)
+    active = np.arange(rows)
+    rms_full = np.full(rows, np.inf, np.float32)
     seed_steps = 0
     done = 0
     if checkpoint_path is not None:
         checkpoint_path = Path(checkpoint_path)
+        if n_pos > 1:
+            checkpoint_path = checkpoint_path.with_name(
+                f"{checkpoint_path.stem}.{pos}of{n_pos}"
+                f"{checkpoint_path.suffix}")
         if checkpoint_path.exists():
             ckpt = np.load(checkpoint_path)
-            if (ckpt["z"].shape == (batch, T)
+            if (ckpt["z"].shape == (rows, T)
                     and int(ckpt["done"]) <= max_iterations):
                 z, m, v = (torch.from_numpy(ckpt[k]).to(device)
                            for k in ("z", "m", "v"))
@@ -327,7 +355,7 @@ def synthesize_batch(
                 rms_full = np.asarray(ckpt["rms_full"])
                 if verbose:
                     print(f"  resumed synthesis from step {done} "
-                          f"({batch - active.size}/{batch} already converged)",
+                          f"({rows - active.size}/{rows} already converged)",
                           flush=True)
     tail = _tail_segment(segment)
     last_save = time.monotonic()
@@ -344,7 +372,7 @@ def synthesize_batch(
         if verbose:
             print(f"  synthesis step {done:5d}: rms mismatch "
                   f"median={np.median(rms_full):.4f} max={rms_full.max():.4f}"
-                  f" | {batch - active.size}/{batch} converged", flush=True)
+                  f" | {rows - active.size}/{rows} converged", flush=True)
         if (checkpoint_path is not None and
                 time.monotonic() - last_save >= checkpoint_min_interval_s):
             last_save = time.monotonic()
@@ -358,6 +386,19 @@ def synthesize_batch(
         # budget): evaluate the losses only
         _, _, _, losses = _optimize_segment(z, m, v, done, n_steps=0, **kw)
         rms_full = np.sqrt(losses.cpu().numpy())
+    if std:
+        # the loss/rms describe the per-seed standardized series — return
+        # exactly that (the raw variable may carry a residual mean/scale the
+        # projection absorbed)
+        z = _standardize(z)
+    if n_pos > 1:
+        # every rank's rows, in position order; the work summed over ranks
+        # and the steps of the longest-running rank
+        z = mesh.all_gather(z).reshape(batch, T)
+        rms_full = as_numpy(mesh.all_gather(
+            torch.from_numpy(rms_full).to(device)).reshape(batch))
+        work = mesh.all_gather(torch.tensor([seed_steps, done], device=device))
+        seed_steps, done = int(work[:, 0].sum()), int(work[:, 1].max())
     if work_log is not None:
         work_log["seed_steps"] = seed_steps
         work_log["steps"] = done
@@ -365,9 +406,4 @@ def synthesize_batch(
         work_log["t_init_s"] = t_init
     if checkpoint_path is not None and checkpoint_path.exists():
         checkpoint_path.unlink()  # shard finished: drop the mid-shard state
-    if std:
-        # the loss/rms describe the per-seed standardized series — return
-        # exactly that (the raw variable may carry a residual mean/scale the
-        # projection absorbed)
-        z = _standardize(z)
     return z, rms_full

@@ -19,6 +19,11 @@ an exact sort-based top-k: any expansion distance, any filter width),
 kernel, fused, direct that applies. The device is explicit:
 ``device="cuda"`` is the default and raises when there is no card;
 ``device="cpu"`` runs the kernels' plain PyTorch versions.
+
+With ``mesh=`` every rank of a :mod:`torch.distributed` world holds a row
+shard and runs each route on it, and the k winners merge across the ranks
+(:mod:`shadowing_tpu_torch.parallel.sharding`); without one the same code
+runs on a mesh of one position, where no collective runs.
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ from shadowing_tpu_torch.ops import factored as factored_ops
 from shadowing_tpu_torch.ops import search as search_ops
 from shadowing_tpu_torch.ops.sliding import sliding_dot
 from shadowing_tpu_torch.ops.topk import merge_min, topk_min
+from shadowing_tpu_torch.parallel import sharding as psh
+from shadowing_tpu_torch.parallel.multihost import host_row_range
 from shadowing_tpu_torch.pricing.hedged_mc import compute_smile_batch
 from shadowing_tpu_torch.shadow.context import ContextManager, PredictionContext
 from shadowing_tpu_torch.shadow.distance import PathDistance
@@ -109,14 +116,16 @@ def _window_norms(y: torch.Tensor, kernel: torch.Tensor, n_out: int,
 # --------------------------------------------------------------------------
 
 def _direct_search(y: torch.Tensor, x_emb: torch.Tensor, kernel: torch.Tensor,
-                   k: int, n_out: int, n_splits: int,
-                   distance: PathDistance) -> torch.Tensor:
+                   k: int, n_out: int, n_splits: int, distance: PathDistance,
+                   n_valid_rows: Optional[int] = None):
     """Embed every window, broadcast the distance, sort-exact top-k per row
-    chunk, exact running merge (the reference algorithm). Returns int64 flat
-    ids ``(B, k)``, ``traj * n_out + t``."""
+    chunk, exact running merge (the reference algorithm). Rows at or past
+    ``n_valid_rows`` (default: none) score ``+inf``. Returns the distances
+    and int64 flat ids ``(B, k)``, ``traj * n_out + t``."""
     R = y.shape[0]
     B = x_emb.shape[0]
     chunk = -(-R // n_splits)
+    valid = R if n_valid_rows is None else n_valid_rows
     d_run = torch.full((B, k), float("inf"), device=y.device)
     i_run = torch.full((B, k), torch.iinfo(torch.int64).max,
                        dtype=torch.int64, device=y.device)
@@ -124,9 +133,10 @@ def _direct_search(y: torch.Tensor, x_emb: torch.Tensor, kernel: torch.Tensor,
         e = sliding_dot(y[r0 : r0 + chunk], kernel, n_out)   # (r, d, T')
         d = distance.forward(x_emb[:, None, None, :],
                              e.transpose(1, 2)[None])        # (B, r, T')
+        d[:, max(valid - r0, 0):] = float("inf")
         vals, idx = topk_min(d.reshape(B, -1), min(k, d[0].numel()))
         d_run, i_run = merge_min(d_run, i_run, vals, idx + r0 * n_out, k)
-    return i_run
+    return d_run, i_run
 
 
 # --------------------------------------------------------------------------
@@ -135,12 +145,13 @@ def _direct_search(y: torch.Tensor, x_emb: torch.Tensor, kernel: torch.Tensor,
 
 def _fused_search(y: torch.Tensor, norms: torch.Tensor, g: torch.Tensor,
                   x_norm2: torch.Tensor, k: int, n_out: int, n_splits: int,
-                  distance: PathDistance) -> torch.Tensor:
+                  distance: PathDistance):
     """Cross terms ``y ⋆ g_b`` of a row chunk (fp32 ``conv1d``), the
     distance's selection score, the chunk's exact k smallest (stable sort:
     lower flat id first on ties) and an exact running merge. Rows are never
-    padded: the last chunk is just shorter. Returns int64 flat ids
-    ``(B, k)``."""
+    padded: the last chunk is just shorter. A row whose norms are ``+inf``
+    scores ``+inf``, whatever the distance. Returns the scores and int64
+    flat ids ``(B, k)``."""
     R = y.shape[0]
     B = g.shape[0]
     chunk = -(-R // n_splits)
@@ -148,12 +159,13 @@ def _fused_search(y: torch.Tensor, norms: torch.Tensor, g: torch.Tensor,
     i_run = torch.full((B, k), torch.iinfo(torch.int64).max,
                        dtype=torch.int64, device=y.device)
     for r0 in range(0, R, chunk):
+        n_c = norms[None, r0 : r0 + chunk]
         cross = sliding_dot(y[r0 : r0 + chunk], g, n_out).transpose(0, 1)
-        s = distance.score(x_norm2[:, None, None], cross,
-                           norms[None, r0 : r0 + chunk]).reshape(B, -1)
+        s = distance.score(x_norm2[:, None, None], cross, n_c)
+        s = torch.where(torch.isinf(n_c), float("inf"), s).reshape(B, -1)
         vals, idx = topk_min(s, min(k, s.shape[1]))
         d_run, i_run = merge_min(d_run, i_run, vals, idx + r0 * n_out, k)
-    return i_run
+    return d_run, i_run
 
 
 def _prep_context(x_context: torch.Tensor, raw_kernel: torch.Tensor,
@@ -191,22 +203,6 @@ def _exact_rescore(x_emb: torch.Tensor, in_paths: torch.Tensor,
     return distance.forward(x_emb[:, None, :], embed_windows(in_paths, kernel))
 
 
-def _finalize_shadow(y, flat_idx, x_emb, kernel, n_out, w_extract, distance,
-                     select_in):
-    """Extraction + exact rescore + ascending sort.
-
-    ``flat_idx`` is sorted first so the stable sort below yields the
-    canonical (distance, flat id) order: every route returns the same winner
-    order even when distinct windows tie in f32 distance."""
-    flat_idx = torch.sort(flat_idx, dim=-1).values
-    paths, idces = _extract_paths(y, flat_idx, n_out, w_extract)
-    dists = _exact_rescore(x_emb, select_in(paths), kernel, distance)
-    dists, order = torch.sort(dists, dim=-1, stable=True)
-    paths = torch.gather(paths, 1, order[..., None, None].expand_as(paths))
-    idces = torch.gather(idces, 1, order[..., None].expand_as(idces))
-    return dists, paths, idces
-
-
 def _aggregate_predictions(distances, paths, to_predict, proba_name, eta,
                            select_out):
     proba = PathShadowing.init_averaging_proba(proba_name,
@@ -242,7 +238,19 @@ class PathShadowing:
     :param context: what is matched vs predicted
         (default: :class:`PredictionContext` with no horizon)
     :param device: where the dataset lives and every step runs:
-        ``"cuda"`` (default; raises without a card) or ``"cpu"``
+        ``"cuda"`` (default; raises without a card) or ``"cpu"``; with a
+        :class:`~shadowing_tpu_torch.parallel.Mesh`, the mesh's device
+    :param mesh: run the pipeline sharded over the ranks of a mesh: a
+        :class:`~shadowing_tpu_torch.parallel.Mesh`, its size (built by
+        :func:`~shadowing_tpu_torch.parallel.data_mesh` on ``device``; it
+        must equal the world size) or ``None`` (this process alone). Each
+        rank holds its rows of the dataset, zero-padded to the mesh, and
+        every rank returns the same results as ``mesh=None``.
+    :param n_trajectories: the true trajectory count. Rows at or past it
+        never win a search. With a mesh, a ``dataset`` of fewer rows is this
+        rank's shard of the padded dataset
+        (:func:`~shadowing_tpu_torch.parallel.shard_dataset_from_local`).
+        Default: every row of ``dataset`` is data.
     """
 
     #: context batches at least this large route pass 1 through the
@@ -256,14 +264,30 @@ class PathShadowing:
         distance: PathDistance,
         dataset: Union[Array, Path, str, TimeSeriesDataset],
         context: Optional[ContextManager] = None,
+        mesh: Union[None, int, psh.Mesh] = None,
+        n_trajectories: Optional[int] = None,
         *,
-        device: Union[str, torch.device] = "cuda",
+        device: Union[None, str, torch.device] = None,
     ):
         if isinstance(dataset, (str, Path)):
             dataset = TimeSeriesDataset(dpath=dataset, R=None)
         if isinstance(dataset, TimeSeriesDataset):
             dataset = dataset.load()
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, psh.Mesh):
+            mesh = psh.data_mesh(int(mesh), device=device or "cuda")
+        if isinstance(mesh, psh.Mesh):
+            if device is not None and resolve_device(device).type != \
+                    mesh.device.type:
+                raise ValueError(f"device={device!r} conflicts with the "
+                                 f"mesh's device {mesh.device}")
+            self.device = mesh.device
+        else:
+            self.device = resolve_device(device or "cuda")
+        #: the mesh as given (``None``: this process alone)
+        self.mesh = mesh
+        # the mesh every step runs on: a mesh of one position without one
+        self._mesh = mesh or psh.local_mesh(self.device)
+        self._R = n_trajectories
         self.dataset = dataset
         self.embedding = embedding
         self.distance = distance
@@ -297,6 +321,7 @@ class PathShadowing:
             "k": k,
             **self._last_search,
             "factored": self._E is not None,
+            "mesh": None if self.mesh is None else dict(self.mesh.shape),
             "redo_contexts": redo_contexts,
             **extra,
         }
@@ -304,14 +329,31 @@ class PathShadowing:
     # -- device state ----------------------------------------------------
     @property
     def y(self) -> torch.Tensor:
-        """The dataset on the engine's device, float32 ``(R, C, T)``."""
+        """This rank's rows of the dataset, zero-padded to the mesh, float32
+        ``(R_pad / n, C, T)`` on the engine's device (without a mesh, the
+        whole dataset)."""
         if self._y is None:
-            self._y = as_torch_f32(dim_bct(self.dataset), self.device)
+            data = dim_bct(self.dataset)
+            rows = data.shape[0]
+            if rows < self.R:     # this rank's shard of the padded dataset
+                start, stop = host_row_range(self.R, self._mesh)
+                if rows != stop - start:
+                    raise ValueError(
+                        f"a dataset of {rows} rows below n_trajectories="
+                        f"{self.R} must be this rank's shard of "
+                        f"{stop - start} rows: assemble it with "
+                        "shadowing_tpu_torch.parallel.shard_dataset_from_local")
+                self._y = as_torch_f32(data, self.device)
+            else:
+                self._y = psh.shard_dataset(data, self._mesh)
         return self._y
 
     @property
     def R(self) -> int:
-        return dim_bct(self.dataset).shape[0]
+        """The true trajectory count (without the mesh's padding rows)."""
+        if self._R is None:
+            return dim_bct(self.dataset).shape[0]
+        return self._R
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return as_torch_f32(a, self.device)
@@ -337,12 +379,14 @@ class PathShadowing:
         the direct oracle holds the embedding (d), the broadcast difference
         (B * d), the distances and their sort (values plus int64 ids,
         twice); the fused route holds no embedding, only the cross term and
-        the scores (2 per context) and the sort (6 per context)."""
+        the scores (2 per context) and the sort (6 per context). Sized for
+        this rank's rows, and its share of a card that ranks share."""
         if method == "fused":
             per_row = 4 * n_out * (1 + 8 * B)
         else:
             per_row = 4 * n_out * (d + B * (d + 8))
-        return max(1, -(-self.R * per_row // _memory_budget(self.device)))
+        budget = _memory_budget(self.device) // self._mesh.ranks_per_device
+        return max(1, -(-self.y.shape[0] * per_row // budget))
 
     def _kernel_ok(self, kernel: np.ndarray) -> bool:
         """Whether the two-pass kernel search applies: a distance whose
@@ -363,8 +407,13 @@ class PathShadowing:
 
     def _factored_ok(self, kernel: np.ndarray, n_out: int, B: int) -> bool:
         """Whether pass 1 should use the factored responses: enough contexts,
-        an embedding narrow enough for the kernel's registers, and an E that
-        fits the device's free memory beside 2 GB of headroom."""
+        an embedding narrow enough for the kernel's registers, and an E of
+        this rank's rows that fits its share of the device's free memory
+        beside 2 GB of headroom.
+
+        On a mesh the ranks may decide differently (free memory is each
+        rank's own): neither kernel call holds a collective, and both
+        routes end in the same k-merge."""
         d = kernel.shape[0]
         if B < self.FACTORED_MIN_B:
             self._log_route(
@@ -380,8 +429,9 @@ class PathShadowing:
             self._log_route(f"factored pass-1 routed: B={B}, E="
                             f"{self._E.numel() * 4 / 1e9:.2f} GB resident")
             return True
-        e = factored_ops.e_bytes(self.R, n_out, d)
-        free = _free_bytes(self.device) - _HEADROOM
+        e = factored_ops.e_bytes(self.y.shape[0], n_out, d)
+        free = (_free_bytes(self.device) // self._mesh.ranks_per_device
+                - _HEADROOM)
         if e > free:
             self._log_route(
                 f"factored declined: E needs {e / 1e9:.2f} GB but only "
@@ -392,7 +442,9 @@ class PathShadowing:
         return True
 
     def window_norms(self, n_splits: Optional[int] = None) -> torch.Tensor:
-        """``‖h(y_t)‖²`` for every window ``(R, n_out)`` — cached."""
+        """``‖h(y_t)‖²`` for every window of this rank's rows ``(R_pad / n,
+        n_out)`` — cached; ``+inf`` on rows at or past ``R`` (the mesh's
+        padding), which then never win."""
         if self._norms is None:
             kernel, n_out = self._plan()
             if n_splits is None:
@@ -401,13 +453,15 @@ class PathShadowing:
             # most one nonzero tap in the context-adjusted kernel
             diag = bool((np.count_nonzero(kernel.reshape(kernel.shape[0], -1),
                                           axis=1) <= 1).all())
-            self._norms = _window_norms(self.y, self._tensor(kernel), n_out,
-                                        min(n_splits, self.R), diag)
+            self._norms = psh.sharded_window_norms(
+                self.y, self._tensor(kernel), n_out,
+                min(n_splits, self.y.shape[0]), diag, self.R, self._mesh)
         return self._norms
 
     def factored_responses(self) -> torch.Tensor:
-        """The factored responses ``E (R, d, nblk * 128)`` of the plan kernel
-        — built at first use, cached until evicted."""
+        """The factored responses ``E (R_pad / n, d, nblk * 128)`` of the
+        plan kernel over this rank's rows — built at first use, cached until
+        evicted."""
         if self._E is None:
             kernel, n_out = self._plan()
             self._E = factored_ops.build_factored(self.y, self._tensor(kernel),
@@ -460,6 +514,10 @@ class PathShadowing:
         self._last_search = {"method": method, "n_splits": n_splits,
                              "n_out": n_out, "R": self.R}
 
+        # every step below runs on this rank's rows and merges the k winners
+        # over the mesh; B, k, the route and the reduced ok are the same on
+        # every rank, so every rank enters the same collectives
+        mesh = self._mesh
         y = self.y
         kernel_t = self._tensor(kernel)
         raw_kernel = self._tensor(self.embedding.kernel)
@@ -474,11 +532,12 @@ class PathShadowing:
                 self._log_route(f"cap memo: routing (B={B}, k={k}) at the "
                                 f"previously certified cap={cap}")
             if self._factored_ok(kernel, n_out, B):
-                _, flat_idx, ok = factored_ops.two_pass_search_factored(
-                    self.factored_responses(), norms, y, g, x_emb, k, cap)
+                _, flat_idx, ok = psh.sharded_factored_search(
+                    self.factored_responses(), norms, y, g, x_emb, k, mesh,
+                    cap)
             else:
-                _, flat_idx, ok = search_ops.two_pass_search(y, norms, g, k,
-                                                             cap)
+                _, flat_idx, ok = psh.sharded_two_pass_search(y, norms, g, k,
+                                                              mesh, cap)
             # tier-1 redo: a certification failure is almost always a thin
             # order-statistic margin, so the same kernel at ~4x the block
             # slack certifies at a fraction of the oracle's cost
@@ -493,15 +552,17 @@ class PathShadowing:
                                     "escalated retry")
                 if tournament_cap is None:
                     self._cap_memo[(B, k)] = esc_cap
-                return search_ops.two_pass_search(y, norms, g, k, esc_cap)
+                return psh.sharded_two_pass_search(y, norms, g, k, mesh,
+                                                   esc_cap)
+        elif method == "fused":
+            # sort-exact selection: nothing to certify or redo
+            _, flat_idx, ok = psh.sharded_fused_search(
+                y, self.window_norms(), g, x_norm2, k, n_out, self.distance,
+                mesh, n_splits)
         else:
-            # both selections are sort-exact: nothing to certify or redo
-            if method == "fused":
-                flat_idx = _fused_search(y, self.window_norms(), g, x_norm2,
-                                         k, n_out, n_splits, self.distance)
-            else:
-                flat_idx = _direct_search(y, x_emb, kernel_t, k, n_out,
-                                          n_splits, self.distance)
+            _, flat_idx = psh.sharded_direct_search(
+                y, x_emb, kernel_t, k, n_out, self.distance, self.R, mesh,
+                n_splits)
             ok = torch.ones((B,), dtype=torch.bool, device=y.device)
 
         rows = torch.nonzero(~ok).flatten()
@@ -523,14 +584,14 @@ class PathShadowing:
                     self._E = None
                     self._log_route("redo: evicted factored E cache for the "
                                     "oracle")
-                flat_idx[rows] = _direct_search(
-                    y, x_emb[rows], kernel_t, k, n_out,
-                    self._auto_splits(rows.numel(), n_out, d), self.distance)
+                flat_idx[rows] = psh.sharded_direct_search(
+                    y, x_emb[rows], kernel_t, k, n_out, self.distance, self.R,
+                    mesh, self._auto_splits(rows.numel(), n_out, d))[1]
 
         w_extract = x.shape[-1] + self.context.get_out_times()
-        dists, paths, idces = _finalize_shadow(
+        dists, paths, idces = psh.sharded_finalize_shadow(
             y, flat_idx, x_emb, raw_kernel, n_out, w_extract, self.distance,
-            self.context.select_in_context)
+            self.context.select_in_context, mesh)
         return dists, paths, idces, n_redo
 
     def shadow(

@@ -1,5 +1,6 @@
 """The two hand-written CUDA kernels against their plain PyTorch versions,
-on the card.
+on the card, and the paths that run them there (the search routes, the
+synthesis, a mesh of ``torchrun`` ranks).
 
 These tests need an NVIDIA GPU with ``nvcc``; without one they skip. The
 module imports neither JAX nor the JAX package, so it also runs where JAX is
@@ -290,3 +291,87 @@ def test_generate_returns_a_cuda_tensor(cuda, tmp_path):
     again = P.generate(dlnx, R=6, J=5, T=512, max_iterations=60, batch=4,
                        cache_path=tmp_path)
     assert torch.equal(again, out)
+
+
+def mesh_problem():
+    rng = np.random.default_rng(5)
+    ds = rng.normal(0, 0.011, size=(301, 1, 900)).astype(np.float32)
+    ctx = np.stack([ds[r, :, s : s + 20] for r, s in
+                    zip(rng.integers(0, 301, 9), rng.integers(0, 800, 9))])
+    return ds, ctx
+
+
+def mesh_engine(ds, **kw):
+    import shadowing_tpu_torch as P
+
+    return P.PathShadowing(P.Identity(20), P.RelativeMSE(), ds,
+                           P.PredictionContext(20), **kw)
+
+
+def test_ranks_launch_both_kernels_on_the_card(cuda, tmp_path):
+    """A ``torchrun`` of one rank per card, at least two (R = 301 divides
+    neither 2 nor 4): every rank launches K1 (one context) and K2 (nine) on
+    its rows, and the winners equal one engine's. Two ranks on one card
+    talk gloo, ranks with a card each NCCL."""
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    n = max(2, torch.cuda.device_count())
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        filter(None, [str(repo), env.get("PYTHONPATH")]))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         str(n), "--master-addr", "127.0.0.1", "--master-port", str(port),
+         __file__, str(tmp_path)], cwd=repo, env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    assert proc.returncode == 0, out[-4000:]
+    ds, ctx = mesh_problem()
+    eng = mesh_engine(ds, device=cuda)
+    want = [eng.shadow(ctx[:B], k=300)[2] for B in (1, 9)]
+    for r in range(n):
+        got = np.load(tmp_path / f"rank{r}.npz")
+        assert got["backend"] == ("gloo" if n > torch.cuda.device_count()
+                                  else "nccl")
+        (k1, _), (_, k2) = got["launches"]      # (K1, K2) of B = 1 and 9
+        assert k1 > 0 and k2 > 0
+        for B, w in zip((1, 9), want):
+            np.testing.assert_array_equal(got[f"ids{B}"], w)
+
+
+def _mesh_rank(out):
+    """One rank of the test above."""
+    from shadowing_tpu_torch.parallel import data_mesh
+
+    mesh = data_mesh()
+    ds, ctx = mesh_problem()
+    eng = mesh_engine(ds, mesh=mesh)
+    res, launches = {}, []
+    for B in (1, 9):
+        search.TOEPLITZ.launches = factored.FACTORED.launches = 0
+        res[f"ids{B}"] = eng.shadow(ctx[:B], k=300)[2]
+        launches.append([search.TOEPLITZ.launches, factored.FACTORED.launches])
+    np.savez(f"{out}/rank{mesh.data_pos}.npz", launches=np.array(launches),
+             backend=torch.distributed.get_backend(), **res)
+    torch.distributed.destroy_process_group()
+
+
+if __name__ == "__main__":
+    import sys
+
+    _mesh_rank(sys.argv[1])

@@ -48,7 +48,9 @@ def test_port_never_imports_jax_or_the_jax_package():
     assert not offenders
     code = ("import sys, shadowing_tpu_torch, shadowing_tpu_torch.convert, "
             "shadowing_tpu_torch.models.scattering, "
-            "shadowing_tpu_torch.cli.snp_generation; "
+            "shadowing_tpu_torch.cli.snp_generation, "
+            "shadowing_tpu_torch.parallel; "
+            "shadowing_tpu_torch.data_mesh; "
             "shadowing_tpu_torch.generate; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
             "('jax.', 'shadowing_tpu.')) or m == 'shadowing_tpu']; "
