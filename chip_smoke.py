@@ -25,8 +25,10 @@ drives the main path at the README workflow scale (32,768 trajectories x
    return the certified winners of phase 4;
 7. the fused route: cosine (Identity(20)) and RelativeMSE over a
    ``Foveal(1.15, 0.9, 400)`` filter wider than ``MAX_WIDTH``, B = 1 and 64,
-   against the on-card direct oracle; the sort-based selection's time at
-   k = 10,000 and 16,384 of 1.3 million;
+   against the on-card direct oracle; then the certified tournament
+   selection (``topk_min_batched``) against the stable sort at k = 10,000
+   and 16,384 of 1.3 million and at pass 2's own shapes, equal wherever
+   certified, with both times and ``torch.topk``'s;
 8. ``exact_dtype="float64"``: distances equal a numpy float64 rescore;
 9. ``shadow_sharded_rows`` over the two row halves equals one engine;
 10. an MRW dataset (32,768 x 4,097 log-prices) generated on the card;
@@ -50,7 +52,17 @@ drives the main path at the README workflow scale (32,768 trajectories x
     ``PathShadowing(mesh=data_mesh(), n_trajectories=R)``: phase 4's
     ``predict_and_smile`` (K1 on every rank) and phase 5's ``predict`` (K2)
     equal phases 4-5, the forced redo, then ``sharded_synthesis_step`` and
-    ``synthesize_batch(mesh=)`` against the same steps in one process.
+    ``synthesize_batch(mesh=)`` against the same steps in one process;
+16. the figures: ``cli.make_figures`` (MRW 2,048 x 4,097, ``Identity(126)``,
+    k = 8,192) computes the shadow band and the conditional smile through
+    K1, and draws ``shadow.png`` and ``smile.png`` where matplotlib is
+    installed;
+17. the reference's performance cell: ``predict`` at k = 10,000 over a
+    131,072 x 4,096 normal dataset made on the card, ``Foveal(1.15, 0.9,
+    126)``, horizon 252 (K1 at B = 1, w = 126), winners held to the direct
+    oracle's, its warm wall beside the reference's published 2.65 s;
+18. the parallel shard reader against ``numpy.load``: phase 14's dataset
+    directory, phase 15's dataset file, and that file cut into 8 shards.
 
 Every check raises on failure. The line before the last is a JSON object
 of the kernels: launch counts summed over every path, and per shape the
@@ -100,6 +112,10 @@ CLI_R, CLI_BATCH = 2048, 256  # phase 14: two tasks of 1,024 paths
 MESH_RANKS, MESH_TIMEOUT = 2, 400
 MESH_SEEDS, MESH_ITERS, MESH_STEPS, MESH_SEED = 32, 40, 3, 5
 MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh"
+#: phase 17: testing.ipynb's performance cell (BASELINE.md row 1)
+R_REF, W_REF, H_REF, K_REF, TS_REF = 131072, 126, 252, 10000, [2, 7, 252]
+REF_WALL = "2.65 s, unspecified CUDA GPU (BASELINE.md:8)"
+N_SHARDS = 8                  # phase 18: the phase-15 dataset cut into shards
 PDV_PARAMS = dict(lams1=[55.0, 10.0], lams2=[20.0, 3.0], thetas=[0.25, 0.5],
                   betas=[0.04, -0.12, 0.75])
 
@@ -377,7 +393,8 @@ def main_path(dataset, device) -> dict:
     k1_launches = TOEPLITZ.launches
     log(f"phase 4 predict_and_smile (B=1, k={K}): first call {first:.3f} s, "
         f"warm median of 5 {warm:.4f} s; K1 launches {k1_launches}, "
-        f"route {eng.last_metrics['method']}")
+        f"route {eng.last_metrics['method']}, contexts redone "
+        f"{eng.last_metrics['redo_contexts']}")
     if k1_launches == 0:
         raise AssertionError("the one-context main path never launched K1")
 
@@ -432,7 +449,8 @@ def main_path(dataset, device) -> dict:
     k2_launches = FACTORED.launches
     log(f"phase 5 predict (B=64, k={K}): E build {e_build:.3f} s, first call "
         f"{first64:.3f} s, warm median of 5 {warm64:.4f} s; K2 launches "
-        f"{k2_launches}, K1 launches {TOEPLITZ.launches}")
+        f"{k2_launches}, K1 launches {TOEPLITZ.launches}, contexts redone "
+        f"{eng.last_metrics['redo_contexts']}")
     if k2_launches == 0:
         raise AssertionError("the batched main path never launched K2")
     if not any(s.startswith("factored pass-1 routed") for s in eng.routing_log):
@@ -540,7 +558,7 @@ class Launches:
 def fused_route(dataset, device) -> None:
     """Phase 7: the fused route at full width — cosine (no kernel score
     form) and a Foveal filter wider than ``MAX_WIDTH`` — against the
-    on-card direct oracle, and the cost of its sort-based selection."""
+    on-card direct oracle; its chunks select through the tournament."""
     import torch
 
     from shadowing_tpu_torch import (
@@ -552,10 +570,8 @@ def fused_route(dataset, device) -> None:
         RelativeMSE,
         SPDaily,
     )
-    from shadowing_tpu_torch.ops.topk import topk_min
 
     snp = SPDaily().dlnx[0, 0].astype(np.float32)
-    res = {}
     for label, emb, dist, w in (
             ("cosine Identity(20)", Identity(W), CosineDistance(), W),
             (f"RelativeMSE Foveal(1.15, 0.9, {W_WIDE})",
@@ -573,8 +589,8 @@ def fused_route(dataset, device) -> None:
                                      f"launches {ran.counts}")
             log(f"phase 7 fused {label} (d={emb.dim}) B={B}, k={K}: first "
                 f"call {first:.3f} s, warm {warm:.4f} s (median of 3), "
-                f"n_splits {eng.last_metrics['n_splits']}")
-            res[f"{label} B={B}"] = warm
+                f"n_splits {eng.last_metrics['n_splits']}, contexts redone "
+                f"{eng.last_metrics['redo_contexts']}")
         d_o, _, i_o = eng.shadow(ctx64[-2:], k=K, method="direct")
         if not agree_up_to_ties(d[-2:], i[-2:], d_o, i_o):
             raise AssertionError(f"{label}: fused ids differ from the direct "
@@ -586,15 +602,66 @@ def fused_route(dataset, device) -> None:
         del eng
         torch.cuda.empty_cache()
 
+
+
+def selection(device) -> None:
+    """Phase 7, selection: the certified tournament against the stable sort
+    on the card, at the fused route's shapes and at pass 2's own (the final
+    selection of k among ``(k + 384) * 128`` candidates with ``cap = k +
+    128``). Each shape is checked on rows of every adversarial style
+    (normal, quantized, ties, a fifth ``+inf``, fewer than k finite) and
+    timed on uniform rows."""
+    import torch
+
+    from shadowing_tpu_torch.ops.topk import topk_min_batched, topk_min_sort
+
     gen = torch.Generator(device=device).manual_seed(0)
-    for B in (1, 64):
-        s = torch.rand((B, SEL_N), generator=gen, device=device)
-        for k in SEL_KS:
-            ms = median_ms(lambda: topk_min(s, k))
-            ms_topk = median_ms(lambda: torch.topk(s, k, largest=False))
-            log(f"  selection B={B}, k={k} of {SEL_N}: topk_min (stable sort) "
-                f"{ms:.3f} ms, torch.topk {ms_topk:.3f} ms")
+
+    def adversarial(B, n, k):
+        s = torch.randn((B, n), generator=gen, device=device)
+        for b in range(B):
+            style = b % 5
+            if style == 1:                      # quantized: many exact ties
+                s[b] = torch.round(s[b] * 3) + 0.0
+            elif style == 2:                    # two values only
+                s[b] = torch.where(s[b] < -1.0, -1.0, 0.0)
+            elif style == 3:                    # a fifth of the row +inf
+                s[b, torch.rand(n, generator=gen, device=device) < 0.2] = \
+                    float("inf")
+            elif style == 4:                    # fewer than k finite scores
+                s[b, k // 2:] = float("inf")
+        return s
+
+    shapes = [(B, SEL_N, k, None, "fused") for B in (1, 64) for k in SEL_KS]
+    shapes += [(64, (k + 384) * 128, k, k + 128, "pass 2")
+               for k in (K, K_BIG)]
+    for B, n, k, cap, where in shapes:
+        s = adversarial(B, n, k)
+        v, i, ok = topk_min_batched(s, k, cap=cap)
+        v_s, i_s, _ = topk_min_sort(s, k)
+        if not (torch.equal(v[ok], v_s[ok]) and torch.equal(i[ok], i_s[ok])
+                and bool((v[:, 1:] >= v[:, :-1]).all())):
+            raise AssertionError(f"selection B={B}, k={k} of {n}: the "
+                                 "tournament differs from the stable sort "
+                                 "on a certified row")
+        # a row short of k finite scores cannot certify (inf < inf is false)
+        short = torch.arange(B, device=device) % 5 == 4
+        bad = 1.0 - float(ok.float().mean())
+        del s, v, i, v_s, i_s
+        s = torch.rand((B, n), generator=gen, device=device)
+        ok_u = topk_min_batched(s, k, cap=cap).ok
+        ms = median_ms(lambda: topk_min_batched(s, k, cap=cap))
+        ms_sort = median_ms(lambda: topk_min_sort(s, k))
+        ms_topk = median_ms(lambda: torch.topk(s, k, largest=False))
+        log(f"  selection ({where}) B={B}, k={k} of {n}, cap {cap}: "
+            f"tournament {ms:.3f} ms, stable sort {ms_sort:.3f} ms, "
+            f"torch.topk {ms_topk:.3f} ms; uniform rows not certified "
+            f"{1.0 - float(ok_u.float().mean()):.4f}; adversarial rows equal "
+            f"the stable sort wherever certified, not certified {bad:.4f} "
+            f"({int(short.sum())} of {B} rows short of k finite scores, "
+            f"{int(ok[short].sum())} of them certified)")
         del s
+        torch.cuda.empty_cache()
 
 
 def float64_route(dataset, device) -> None:
@@ -724,7 +791,8 @@ def backtest(returns, device) -> None:
         rolling_backtest,
         windows,
     )
-    from shadowing_tpu_torch.ops import factored
+    from shadowing_tpu_torch.ops import factored, search
+    from shadowing_tpu_torch.shadow.engine import _prep_context
     from shadowing_tpu_torch.utils.profiling import device_trace
 
     eng = PathShadowing(Identity(W), RelativeMSE(), returns,
@@ -757,9 +825,29 @@ def backtest(returns, device) -> None:
             f"chunks, ar-linear): first call {first:.3f} s "
             f"({n_dates / first:.0f} dates/s), warm {warm:.4f} s "
             f"({n_dates / warm:.0f} dates/s, median of 3); launches "
-            f"{ran.counts}; peak allocated {peak:.2f} GiB; dates {pick} = "
-            f"direct oracle to {rel:.1e}")
+            f"{ran.counts}; contexts redone "
+            f"{eng.last_metrics['redo_contexts']}; peak allocated {peak:.2f} "
+            f"GiB; dates {pick} = direct oracle to {rel:.1e}")
         log("  " + res.summary().replace("\n", "\n  "))
+        # one 64-date chunk by part: K2, pass 2 (both selections inside it),
+        # and the whole chunk through predict
+        x = torch.as_tensor(ctx[:64], dtype=torch.float32,
+                            device=device)[:, None, :]
+        bank = torch.eye(W, device=device)[:, None, :]
+        x_emb, _, g = _prep_context(x, bank, bank)
+        E, norms = eng.factored_responses(), eng.window_norms()
+        bmin = factored.score_blockmin_factored(E, norms, x_emb)
+        t_p1 = median_ms(lambda: factored.score_blockmin_factored(E, norms,
+                                                                  x_emb))
+        t_p2 = median_ms(lambda: search.pass2_from_bmin(bmin, eng.y, norms, g,
+                                                        k))
+        t_chunk = 1e3 * median_wall(lambda: eng.predict(
+            ctx[:64], k=k, to_predict=to_predict, eta=0.1), 3)
+        log(f"  one 64-date chunk at k={k}: predict {t_chunk:.2f} ms wall "
+            f"(median of 3); K2 pass 1 {t_p1:.3f} ms, pass 2 {t_p2:.3f} ms = "
+            f"{100 * t_p2 / t_chunk:.1f} % of the chunk (device, medians of "
+            f"5)")
+        del bmin, x_emb, g
         if k == K:
             # the profiler's own host overhead inflates the traced wall:
             # the busy share is taken of the unprofiled warm wall
@@ -777,7 +865,6 @@ def backtest(returns, device) -> None:
         raise AssertionError(f"the backtest redid a certification: {redone}")
     log("  checks: no context redone in any chunk (routing_log)")
     # a 65-context chunk (the default n_dates // 64 splits of 130 dates)
-    E, norms = eng.factored_responses(), eng.window_norms()
     x = torch.randn((65, W), generator=torch.Generator(device=device)
                     .manual_seed(0), device=device) * 0.011
     t64 = median_ms(lambda: factored.score_blockmin_factored(E, norms, x[:64]))
@@ -1347,6 +1434,180 @@ def mesh_phase(path: dict, device) -> dict:
             for n, t in (("k1", "K1"), ("k2", "K2"))}
 
 
+# --------------------------------------------------------------------------
+# phases 16-18: the figures, the reference's cell, the shard reader
+# --------------------------------------------------------------------------
+
+def figures(device) -> None:
+    """Phase 16: ``make_figures`` at its own size: the figures' data are
+    computed on the card through K1 and checked; the two PNGs are drawn
+    where matplotlib is installed (a machine without it says so)."""
+    import importlib.util
+    import shutil
+
+    from shadowing_tpu_torch import Softmax
+    from shadowing_tpu_torch.cli import make_figures
+
+    t0 = time.perf_counter()
+    with Launches() as ran:
+        data = make_figures.compute(device.type)
+    ran.require("K1", "make_figures")
+    t_compute = time.perf_counter() - t0
+    d, paths, smile = data["distances"], data["close_paths"], data["smile"]
+    proba = Softmax(d, eta=0.09)
+    band = np.stack([proba.avg(paths, axis=0)[0].numpy(),
+                     proba.std(paths, axis=0)[0].numpy()])
+    shape = (make_figures.K, 1, make_figures.W + make_figures.HORIZON)
+    if not (paths.shape == shape and d.shape == shape[:1]
+            and (np.diff(d) >= 0).all() and np.isfinite(band).all()
+            and (band[1] > 0).all() and smile.vols.shape == (3, 9)
+            and np.isfinite(smile.vols[:, 4]).all()):
+        raise AssertionError(f"phase 16: paths {paths.shape}, distances "
+                             f"{d.shape}, ATM vols {smile.vols[:, 4]}")
+    log(f"phase 16 make_figures (MRW {make_figures.R} x {make_figures.T}, "
+        f"Identity({make_figures.W}), k={make_figures.K}, horizon "
+        f"{make_figures.HORIZON}) computed on the card in {t_compute:.2f} s; "
+        f"launches {ran.counts}; distances {d[0]:.4f}..{d[-1]:.4f} ascend, "
+        f"shadow band finite (mean std {band[1].mean():.5f}), ATM vols "
+        f"{np.round(smile.vols[:, 4].astype(float), 4).tolist()}")
+    if importlib.util.find_spec("matplotlib") is None:
+        log("  matplotlib is not installed on this machine: shadow.png and "
+            "smile.png are not drawn here (tests/test_torch_viz.py draws "
+            "them on the CPU)")
+        return
+    outdir = Path(__file__).resolve().parent / "build" / "figures_smoke"
+    shutil.rmtree(outdir, ignore_errors=True)
+    pngs = make_figures.draw(data, outdir)
+    sizes = [p.stat().st_size for p in pngs]
+    if [p.name for p in pngs] != ["shadow.png", "smile.png"] or min(sizes) < 1000:
+        raise AssertionError(f"phase 16: {pngs} of {sizes} bytes")
+    log(f"  drawn: shadow.png {sizes[0]} bytes, smile.png {sizes[1]} bytes")
+
+
+def reference_cell(device, card: str) -> None:
+    """Phase 17: the reference's performance cell on the card."""
+    import torch
+
+    from shadowing_tpu_torch import (
+        Foveal,
+        PathShadowing,
+        PredictionContext,
+        RelativeMSE,
+        realized_variance,
+    )
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    t0 = time.perf_counter()
+    data = torch.randn((R_REF, 1, T), generator=gen, device=device)
+    ctx = torch.randn((1, 1, W_REF), generator=gen, device=device)
+    eng = PathShadowing(Foveal(1.15, 0.9, W_REF), RelativeMSE(), data,
+                        PredictionContext(horizon=H_REF), device=device)
+    eng.window_norms()
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t0
+    to_predict = lambda x: realized_variance(x, Ts=TS_REF, vol=False)
+    torch.cuda.reset_peak_memory_stats()
+    with Launches() as ran:
+        (pred, std), first, warm = first_and_warm(
+            lambda: eng.predict(ctx, k=K_REF, to_predict=to_predict, eta=0.1))
+    ran.require("K1", "the reference's predict")
+    metrics = dict(eng.last_metrics)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if (metrics["method"] != "kernel" or ran.counts["K2"]
+            or pred.shape != (1, 1, len(TS_REF)) or not np.isfinite(pred).all()
+            or not np.isfinite(std).all()):
+        raise AssertionError(f"phase 17: route {metrics}, launches "
+                             f"{ran.counts}, predictions {pred}")
+    t_search = median_wall(lambda: eng.shadow_device(ctx, k=K_REF), 3)
+    d, _, i = eng.shadow(ctx, k=K_REF)
+    t0 = time.perf_counter()
+    d_o, _, i_o = eng.shadow(ctx, k=K_REF, method="direct")
+    t_direct = time.perf_counter() - t0
+    if not agree_up_to_ties(d, i, d_o, i_o):
+        raise AssertionError("phase 17: K1 route winners differ from the "
+                             "direct oracle's outside the f32 tie window")
+    same = int((i == i_o).all(-1).sum())
+    log(f"phase 17 predict over {R_REF} x 1 x {T} normal f32 (made on the "
+        f"card), Foveal(1.15, 0.9, {W_REF}) d={eng.embedding.dim}, "
+        f"RelativeMSE, horizon {H_REF}, k={K_REF}, eta 0.1, Ts {TS_REF}: "
+        f"dataset + window norms {t_setup:.3f} s; first call {first:.3f} s, "
+        f"warm {warm:.4f} s (median of 3) beside the reference's {REF_WALL}; "
+        f"{card}")
+    log(f"  route {metrics['method']}, launches {ran.counts}, contexts redone "
+        f"{metrics['redo_contexts']}, peak allocated {peak:.2f} GiB; the "
+        f"search alone (shadow_device) {t_search:.4f} s; direct oracle "
+        f"{t_direct:.3f} s; {K_REF} ids equal the direct oracle's ({same} "
+        f"rank for rank, the rest inside the f32 tie window); predicted "
+        f"variances {np.round(pred[0, 0].astype(float), 4).tolist()}")
+    del eng, data
+    torch.cuda.empty_cache()
+
+
+def _wall(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+def shard_reader(device) -> None:
+    """Phase 18: the parallel shard reader against ``numpy.load`` on the
+    same files, the page cache warm for both (each file is read once before
+    anything is timed)."""
+    import shutil
+
+    import torch
+
+    from shadowing_tpu_torch import TimeSeriesDataset, native
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    native.build()
+    t_build = time.perf_counter() - t0
+
+    def numpy_load(files, rows=None):
+        out = np.concatenate([np.load(f) for f in files])
+        return np.ascontiguousarray(out[:rows], dtype=np.float32)
+
+    def both(label, files, reader, rows=None):
+        want = numpy_load(files, rows)                 # warms the page cache
+        got = reader()
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"phase 18 {label}: the reader's array "
+                                 "differs from numpy.load's")
+        t_new = float(np.median([_wall(reader) for _ in range(3)]))
+        t_np = float(np.median([_wall(lambda: numpy_load(files, rows))
+                                for _ in range(3)]))
+        log(f"  {label}: {len(files)} file(s), {want.nbytes / 1e6:.1f} MB -> "
+            f"{want.shape}: parallel reader {t_new:.4f} s, numpy.load "
+            f"{t_np:.4f} s (medians of 3, page cache warm), arrays equal")
+        return got
+
+    log(f"phase 18 shard reader (npyloader.c built by the host compiler in "
+        f"{t_build:.2f} s):")
+    batched = root / "build" / "scat_cli_b"
+    files = sorted(batched.glob("*.npy"))
+    both("phase 14's TimeSeriesDataset directory", files,
+         lambda: TimeSeriesDataset(batched).load())
+    whole = MESH_DIR / "dataset.npy"
+    data = both("phase 15's dataset file", [whole],
+                lambda: native.load_npy_batch([str(whole)])[0])
+    shards = MESH_DIR / "shards"
+    shutil.rmtree(shards, ignore_errors=True)
+    shards.mkdir()
+    rows = data.shape[0] // N_SHARDS
+    for j in range(N_SHARDS):
+        np.save(shards / f"shard{j:02d}.npy", data[j * rows : (j + 1) * rows])
+    files = sorted(shards.glob("*.npy"))
+    # R rows short of the last shard: the reader stops once R are covered
+    R_cut = data.shape[0] - rows - 1
+    got = both(f"the same rows in {N_SHARDS} shards, R={R_cut}", files[:-1],
+               lambda: TimeSeriesDataset(shards, R=R_cut).load(), R_cut)
+    y = torch.from_numpy(got).to(device)
+    if not torch.equal(y.cpu(), torch.from_numpy(data[:R_cut])):
+        raise AssertionError("phase 18: rows on the card differ")
+    shutil.rmtree(shards)
+
+
 def main() -> int:
     import torch
 
@@ -1385,6 +1646,7 @@ def main() -> int:
     path = main_path(dataset, device)
     torch.cuda.empty_cache()
     fused_route(dataset, device)
+    selection(device)
     float64_route(dataset, device)
     sharded_rows(dataset, device)
     del dataset
@@ -1398,9 +1660,13 @@ def main() -> int:
     generation_cli(device)
     torch.cuda.empty_cache()
     mesh = mesh_phase(path, device)
+    torch.cuda.empty_cache()
+    figures(device)
+    reference_cell(device, card)
+    shard_reader(device)
     launches = {n: path[n] + Launches.totals[n] + mesh[n] for n in ("K1", "K2")}
     log(f"launches over every path: {launches} (phases 4-6 {path['K1']} K1, "
-        f"{path['K2']} K2; phases 7-14 {Launches.totals}; phase 15 {mesh})")
+        f"{path['K2']} K2; phases 7-14 and 16-17 {Launches.totals}; phase 15 {mesh})")
     kernels = []
     for name, tag, source, replaces in (
             ("blockmin_toeplitz", "K1",

@@ -28,6 +28,7 @@ setup(
                                     "shadowing_tpu_torch.*"]),
     package_data={"shadowing_tpu.data": ["_bundled/*.npz"],
                   "shadowing_tpu_torch": ["csrc/*.cu"],
+                  "shadowing_tpu_torch.native": ["npyloader.c"],
                   "shadowing_tpu_torch.data": ["_bundled/*.npz"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "pandas"],

@@ -8,6 +8,7 @@ neither JAX nor the JAX package.
 
 __version__ = "0.1.0"
 
+from shadowing_tpu_torch.array_types import Array as ArrayType  # reference alias
 from shadowing_tpu_torch.array_types import Array, as_numpy, dim_bct
 from shadowing_tpu_torch.convert import from_numpy_state
 from shadowing_tpu_torch.data import (
@@ -66,6 +67,11 @@ _LAZY = {
     "shard_dataset": "shadowing_tpu_torch.parallel",
     "sharded_fused_search": "shadowing_tpu_torch.parallel",
     "sharded_synthesis_step": "shadowing_tpu_torch.parallel",
+    # visualisation (imports matplotlib lazily)
+    "plot_closest": "shadowing_tpu_torch.viz.plots",
+    "plot_shadow": "shadowing_tpu_torch.viz.plots",
+    "plot_volatility": "shadowing_tpu_torch.viz.plots",
+    "plot_dashboard": "shadowing_tpu_torch.viz.plots",
 }
 
 
@@ -79,6 +85,7 @@ def __getattr__(name):
 
 __all__ = [
     "Array",
+    "ArrayType",
     "ContextManager",
     "CosineDistance",
     "CrossChannelContext",

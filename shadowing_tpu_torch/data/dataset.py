@@ -1,10 +1,11 @@
 """Sharded on-disk trajectory datasets.
 
-Port of :mod:`shadowing_tpu.data.dataset` on numpy alone: a directory of
-``.npy`` shards (each ``(r_i, C, T)`` or ``(r_i, T)``), loaded lazily,
-keeping the first ``R`` trajectories. Shards are read with ``numpy.load``
-(the JAX package's native C reader is not ported). Device placement is the
-engine's job.
+Port of :mod:`shadowing_tpu.data.dataset`: a directory of ``.npy`` shards
+(each ``(r_i, C, T)`` or ``(r_i, T)``), loaded lazily, keeping the first
+``R`` trajectories. Shards are read concurrently by the parallel reader of
+:mod:`shadowing_tpu_torch.native`, built at first use; a reader that cannot
+be built, a missing file or a bad header raises (there is no second read
+through ``numpy.load``). Device placement is the engine's job.
 """
 from __future__ import annotations
 
@@ -35,14 +36,10 @@ class TimeSeriesDataset:
 
     def load(self) -> np.ndarray:
         """Materialise the first ``R`` trajectories as a ``(R, C, T)`` array."""
-        arrays, total = [], 0
-        for f in self._files:
-            a = np.load(f, mmap_mode="r")
-            arrays.append(np.asarray(a))
-            total += a.shape[0]
-            if self.R is not None and total >= self.R:
-                break
-        out = np.concatenate(arrays, axis=0)
+        from shadowing_tpu_torch.native import load_npy_batch
+
+        out = np.concatenate(
+            load_npy_batch([str(f) for f in self._files], self.R), axis=0)
         if self.R is not None:
             if out.shape[0] < self.R:
                 raise ValueError(

@@ -80,9 +80,9 @@ def generate(
     seed: int = 0,
     batch: int = 256,
     lr=None,
+    mesh=None,
     init: str = "auto",
     shard_logs: Optional[list] = None,
-    mesh=None,
     *,
     device: Union[str, torch.device] = "cuda",
 ) -> torch.Tensor:

@@ -13,7 +13,9 @@ Port of :mod:`shadowing_tpu.ops.pallas_search`.
 * **Pass 2** (:func:`pass2_from_bmin`): select the ``cap`` best blocks per
   context, rescore their windows exactly in fp32 from the raw data, take the
   exact k smallest (lower flat id first on ties) and certify the result
-  against the best unselected block with a self-calibrated guard band.
+  against the best unselected block with a self-calibrated guard band. Both
+  selections go through the certified tournament of
+  :mod:`shadowing_tpu_torch.ops.topk`, whose flags join pass 2's own.
 
 Flat ids are ``traj * n_out + t`` in int64; blocks use the r-major id
 ``r * nblk + j`` for both pass-1 kernels.
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 
 from shadowing_tpu_torch.ops._build import Kernel, ptr
 from shadowing_tpu_torch.ops.sliding import sliding_dot
-from shadowing_tpu_torch.ops.topk import topk_min
+from shadowing_tpu_torch.ops.topk import topk_min_batched
 
 L = 128                   # window starts per block
 MAX_WIDTH = 3 * L + 1     # widest filter the engine routes to the kernels (385)
@@ -208,8 +210,10 @@ def pass2_from_bmin(
         cap = min(max(k + 384, 512), nb)
     cap = min(max(cap, -(-k // L)), nb)
 
-    mu_sel, bidx = torch.topk(bmin.reshape(B, nb), cap, dim=1, largest=False,
-                              sorted=True)
+    # cap best blocks per context — the tournament instead of a flat top-k
+    # or sort over millions of block minima
+    mu_sel, bidx, sel_ok = topk_min_batched(bmin.reshape(B, nb), cap, block=L,
+                                            cap=cap + 128)
     inf = torch.tensor(float("inf"), device=bmin.device)
     mu_cap = mu_sel[:, -1] if cap < nb else inf.expand(B)
     # blocks to flat order (the candidate order fixes the tie rule), carrying
@@ -229,7 +233,10 @@ def pass2_from_bmin(
                        torch.tensor(1e30, device=y.device))
     s = nsel - 2.0 * cross
     flat = r[..., None] * n_out + t                               # (B, cap, L)
-    vals, loc = topk_min(s.reshape(B, cap * L), k)
+    # final exact selection — the tournament again; the k winners occupy at
+    # most k of the cap candidate blocks, so a tight cap is certified-safe
+    vals, loc, fin_ok = topk_min_batched(s.reshape(B, cap * L), k, block=L,
+                                         cap=k + 128)
     idx = torch.gather(flat.reshape(B, cap * L), 1, loc)
 
     # self-calibrated guard: the selected blocks' |pass-1 min - exact min|
@@ -241,7 +248,7 @@ def pass2_from_bmin(
                           torch.zeros_like(exact_bmin)).amax(dim=1)
     guard = 2.0 * err_obs + 1e-5 * mu_cap.abs() + 1e-12
     ok = torch.isinf(mu_cap) | (vals[:, -1] + guard < mu_cap)
-    return vals, idx, ok
+    return vals, idx, ok & sel_ok & fin_ok
 
 
 def two_pass_search(

@@ -35,7 +35,7 @@ import torch.distributed as dist
 from shadowing_tpu_torch.array_types import Array, dim_bct, fp32_exact
 from shadowing_tpu_torch.ops import factored as factored_ops
 from shadowing_tpu_torch.ops import search as search_ops
-from shadowing_tpu_torch.ops.topk import topk_min
+from shadowing_tpu_torch.ops.topk import topk_min_sort
 from shadowing_tpu_torch.parallel.multihost import (
     host_row_range,
     initialize,
@@ -233,7 +233,7 @@ def _topk_merge(vals: torch.Tensor, idx: torch.Tensor, k: int,
     B = vals.shape[0]
     vals_all = vals_all.transpose(0, 1).reshape(B, -1)
     idx_all = idx_all.transpose(0, 1).reshape(B, -1)
-    v, sel = topk_min(vals_all, k)
+    v, sel, _ = topk_min_sort(vals_all, k)
     return v, torch.gather(idx_all, 1, sel)
 
 
@@ -261,18 +261,19 @@ def sharded_fused_search(
     distance,
     mesh: Mesh,
     n_splits: int = 1,
+    cap: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused route (fp32 cross terms, the distance's selection score,
-    sort-exact top-k) on this rank's shard, then the k-merge. Returns
-    ``(scores (B, k) ascending, global flat ids (B, k), ok (B,))`` on every
-    rank; the route is exact, so ``ok`` is all true."""
+    the certified tournament top-k) on this rank's shard, then the k-merge.
+    Returns ``(scores (B, k) ascending, global flat ids (B, k), ok (B,))``
+    on every rank; ``ok`` is true where every rank certified every chunk."""
     from shadowing_tpu_torch.shadow.engine import _fused_search
 
     r_loc = y.shape[0]
     k_loc, ns = _local_k(k, r_loc, n_out, n_splits)
-    vals, idx = _fused_search(y, norms, g, x_norm2, k_loc, n_out, ns, distance)
-    v, i = _topk_merge(vals, idx + mesh.data_pos * r_loc * n_out, k, mesh)
-    return v, i, torch.ones((g.shape[0],), dtype=torch.bool, device=y.device)
+    vals, idx, ok = _fused_search(y, norms, g, x_norm2, k_loc, n_out, ns,
+                                  distance, cap)
+    return _merge(vals, idx, ok, k, r_loc, n_out, mesh)
 
 
 def sharded_two_pass_search(

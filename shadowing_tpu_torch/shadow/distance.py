@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from shadowing_tpu_torch.array_types import Array, as_tensor, as_torch_f32
-from shadowing_tpu_torch.ops.topk import merge_min, topk_min
+from shadowing_tpu_torch.ops.topk import merge_min, topk_min_sort
 
 
 class PathDistance:
@@ -70,7 +70,7 @@ class PathDistance:
         x_u = x.reshape((B1,) + (1,) * (y.ndim - 1) + (x.shape[-1],))
         for start in range(0, B2, chunk):
             d_c = self.forward(x_u, y[start : start + chunk][None]).reshape(B1, -1)
-            v, i = topk_min(d_c, min(k, d_c.shape[1]))
+            v, i, _ = topk_min_sort(d_c, min(k, d_c.shape[1]))
             dists, idces = merge_min(dists, idces, v, i + start * inner, k)
         coords, rem = [], idces
         sizes = (B2,) + inner_shape

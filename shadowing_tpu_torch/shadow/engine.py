@@ -14,7 +14,7 @@ canonical (distance, flat id) order.
 
 Routes (``method=``): ``"kernel"`` (the JAX ``"pallas"`` route), ``"fused"``
 (row chunks of the fp32 cross term, the distance's own selection score and
-an exact sort-based top-k: any expansion distance, any filter width),
+the certified tournament top-k: any expansion distance, any filter width),
 ``"direct"`` (the literal oracle) and ``"auto"``, which takes the first of
 kernel, fused, direct that applies. The device is explicit:
 ``device="cuda"`` is the default and raises when there is no card;
@@ -46,7 +46,11 @@ from shadowing_tpu_torch.data.dataset import TimeSeriesDataset
 from shadowing_tpu_torch.ops import factored as factored_ops
 from shadowing_tpu_torch.ops import search as search_ops
 from shadowing_tpu_torch.ops.sliding import sliding_dot
-from shadowing_tpu_torch.ops.topk import merge_min, topk_min
+from shadowing_tpu_torch.ops.topk import (
+    merge_min,
+    topk_min_batched,
+    topk_min_sort,
+)
 from shadowing_tpu_torch.parallel import sharding as psh
 from shadowing_tpu_torch.parallel.multihost import host_row_range
 from shadowing_tpu_torch.pricing.hedged_mc import compute_smile_batch
@@ -134,7 +138,7 @@ def _direct_search(y: torch.Tensor, x_emb: torch.Tensor, kernel: torch.Tensor,
         d = distance.forward(x_emb[:, None, None, :],
                              e.transpose(1, 2)[None])        # (B, r, T')
         d[:, max(valid - r0, 0):] = float("inf")
-        vals, idx = topk_min(d.reshape(B, -1), min(k, d[0].numel()))
+        vals, idx, _ = topk_min_sort(d.reshape(B, -1), min(k, d[0].numel()))
         d_run, i_run = merge_min(d_run, i_run, vals, idx + r0 * n_out, k)
     return d_run, i_run
 
@@ -145,27 +149,30 @@ def _direct_search(y: torch.Tensor, x_emb: torch.Tensor, kernel: torch.Tensor,
 
 def _fused_search(y: torch.Tensor, norms: torch.Tensor, g: torch.Tensor,
                   x_norm2: torch.Tensor, k: int, n_out: int, n_splits: int,
-                  distance: PathDistance):
+                  distance: PathDistance, cap: Optional[int] = None):
     """Cross terms ``y ⋆ g_b`` of a row chunk (fp32 ``conv1d``), the
-    distance's selection score, the chunk's exact k smallest (stable sort:
-    lower flat id first on ties) and an exact running merge. Rows are never
-    padded: the last chunk is just shorter. A row whose norms are ``+inf``
-    scores ``+inf``, whatever the distance. Returns the scores and int64
-    flat ids ``(B, k)``."""
+    distance's selection score, the chunk's k smallest through the certified
+    tournament (lower flat id first on ties; ``cap`` forces its block count)
+    and an exact running merge. Rows are never padded: the last chunk is
+    just shorter. A row whose norms are ``+inf`` scores ``+inf``, whatever
+    the distance. Returns the scores and int64 flat ids ``(B, k)`` and the
+    flags ``ok (B,)``, true where every chunk's selection was certified."""
     R = y.shape[0]
     B = g.shape[0]
     chunk = -(-R // n_splits)
     d_run = torch.full((B, k), float("inf"), device=y.device)
     i_run = torch.full((B, k), torch.iinfo(torch.int64).max,
                        dtype=torch.int64, device=y.device)
+    ok_run = torch.ones((B,), dtype=torch.bool, device=y.device)
     for r0 in range(0, R, chunk):
         n_c = norms[None, r0 : r0 + chunk]
         cross = sliding_dot(y[r0 : r0 + chunk], g, n_out).transpose(0, 1)
         s = distance.score(x_norm2[:, None, None], cross, n_c)
         s = torch.where(torch.isinf(n_c), float("inf"), s).reshape(B, -1)
-        vals, idx = topk_min(s, min(k, s.shape[1]))
+        vals, idx, ok = topk_min_batched(s, min(k, s.shape[1]), cap=cap)
         d_run, i_run = merge_min(d_run, i_run, vals, idx + r0 * n_out, k)
-    return d_run, i_run
+        ok_run = ok_run & ok
+    return d_run, i_run, ok_run
 
 
 def _prep_context(x_context: torch.Tensor, raw_kernel: torch.Tensor,
@@ -255,7 +262,12 @@ class PathShadowing:
 
     #: context batches at least this large route pass 1 through the
     #: factored-E kernel (its cost is ~flat in B, the Toeplitz kernel's is
-    #: linear); the crossover on the card is still to be measured
+    #: linear). On an NVIDIA H100 80GB HBM3 at 700 W, 32,768 x 4,096 rows,
+    #: w = d = 20, chip_smoke.py's sweep reads (Toeplitz | factored, ms)
+    #: 1.86 | 4.28 at B = 8, 3.34 | 4.46 at 16 and 6.29 | 5.03 at 32: the
+    #: kernels cross between 16 and 32 contexts, so 8 routes B = 8..16 to
+    #: the slower one there. The value waits for a benchmark of whole calls
+    #: (the factored route also pays E's build and memory).
     FACTORED_MIN_B = 8
 
     def __init__(
@@ -555,10 +567,10 @@ class PathShadowing:
                 return psh.sharded_two_pass_search(y, norms, g, k, mesh,
                                                    esc_cap)
         elif method == "fused":
-            # sort-exact selection: nothing to certify or redo
+            # an uncertified context goes straight to the oracle below
             _, flat_idx, ok = psh.sharded_fused_search(
                 y, self.window_norms(), g, x_norm2, k, n_out, self.distance,
-                mesh, n_splits)
+                mesh, n_splits, tournament_cap)
         else:
             _, flat_idx = psh.sharded_direct_search(
                 y, x_emb, kernel_t, k, n_out, self.distance, self.R, mesh,
@@ -660,7 +672,8 @@ class PathShadowing:
         tournament_cap: Optional[int] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """:meth:`shadow` returning device tensors. ``tournament_cap`` forces
-        pass 2's block count (a test hook for the redo path)."""
+        the block count of pass 2, or of the fused route's tournament (a
+        test hook for the redo path)."""
         t0 = time.perf_counter()
         dists, paths, idces, n_redo = self._search(x_context, k, n_splits,
                                                    method, tournament_cap)

@@ -155,6 +155,61 @@ def test_blockmin_factored_error_is_relative(cuda, d, scale):
           factored.score_blockmin_factored_plain(E, norms, x_emb))
 
 
+@pytest.mark.parametrize("k", [1024, 16384])
+def test_tournament_equals_the_stable_sort_at_the_pass2_shapes(cuda, k):
+    """Pass 2's final selection, ``k`` of ``(k + 384) * 128`` candidates at
+    ``cap = k + 128``, on rows of every adversarial style: array-equal to
+    the stable sort wherever certified, and certified on the normal rows."""
+    from shadowing_tpu_torch.ops.topk import topk_min_batched, topk_min_sort
+
+    gen = torch.Generator(device=cuda).manual_seed(k)
+    B, n = 10, (k + 384) * 128
+    s = torch.randn((B, n), generator=gen, device=cuda)
+    s[1::5] = torch.round(s[1::5] * 3) + 0.0                 # quantized
+    s[2::5] = torch.where(s[2::5] < -1.0, -1.0, 0.0)         # two values
+    s[3::5][torch.rand((2, n), generator=gen, device=cuda) < 0.2] = \
+        float("inf")
+    s[4::5, k // 2:] = float("inf")                          # short of k
+    v, i, ok = topk_min_batched(s, k, cap=k + 128)
+    v_s, i_s, _ = topk_min_sort(s, k)
+    assert i.dtype == torch.int64 and i.device.type == "cuda"
+    assert ok[0::5].all() and not ok[4::5].any()
+    assert torch.equal(v[ok], v_s[ok]) and torch.equal(i[ok], i_s[ok])
+    assert (v[:, 1:] >= v[:, :-1]).all()
+    # the block selection's shape: cap = k + 384 of R * nblk block minima
+    bmin = torch.randn((4, 32768 * 32), generator=gen, device=cuda)
+    v, i, ok = topk_min_batched(bmin, k + 384, cap=k + 512)
+    v_s, i_s, _ = topk_min_sort(bmin, k + 384)
+    assert ok.all() and torch.equal(v, v_s) and torch.equal(i, i_s)
+
+
+def test_shard_reader_rows_land_on_the_card(cuda, tmp_path):
+    """Shards read by the parallel reader, put on the card by the engine,
+    equal ``numpy.load``'s."""
+    from shadowing_tpu_torch import (
+        Identity,
+        PathShadowing,
+        PredictionContext,
+        RelativeMSE,
+        TimeSeriesDataset,
+    )
+
+    rng = np.random.default_rng(0)
+    for j in range(6):
+        np.save(tmp_path / f"batch{j:04d}.npy",
+                rng.normal(0, 0.011, size=(50, 1, 600)).astype(np.float32))
+    want = np.concatenate([np.load(f) for f in sorted(tmp_path.glob("*.npy"))]
+                          )[:270]
+    got = TimeSeriesDataset(tmp_path, R=270).load()
+    np.testing.assert_array_equal(got, want)
+    eng = PathShadowing(Identity(20), RelativeMSE(), tmp_path,
+                        PredictionContext(20), device=cuda)
+    assert eng.y.is_cuda and torch.equal(eng.y[:270].cpu(),
+                                         torch.from_numpy(want))
+    d, _, i = eng.shadow(want[7, :, 100:120], k=3)
+    assert d[0, 0] == 0.0 and tuple(i[0, 0]) == (7, 100)
+
+
 def agree_up_to_ties(d_a, i_a, d_b, i_b, atol=1e-6, rtol=1e-5):
     """Winner ids agree rank for rank, except at ranks whose distance lies
     within the float32 tie window (``tests/test_fuzz.py``'s 1e-6 + 1e-5
