@@ -1,0 +1,9 @@
+"""``rescore_device_ms.backtest``: device milliseconds per 64-date chunk
+charged to ``psmc.pass2.rescore``: pass 2's exact rescore of the selected
+blocks (``ops/search.py::_candidate_cross``, the gather of norms, the
+scores) (``benchmark.spans``)."""
+from benchmark import spans
+
+
+def read(r):
+    return spans.device_ms(r, "chunk", ("psmc.pass2.rescore",))

@@ -1,0 +1,9 @@
+"""``rescore_device_ms.query``: device milliseconds per query charged to
+``psmc.pass2.rescore``: pass 2's exact rescore of the selected blocks
+(``ops/search.py::_candidate_cross``, the gather of norms, the scores)
+(``benchmark.spans``)."""
+from benchmark import spans
+
+
+def read(r):
+    return spans.device_ms(r, "query", ("psmc.pass2.rescore",))

@@ -1,0 +1,10 @@
+"""``select_device_ms.backtest``: device milliseconds per 64-date chunk
+charged to ``psmc.pass2.select`` and ``psmc.pass2.final``: pass 2's block
+tournament, its sort into flat order, the final tournament and the
+certification guard (``benchmark.spans``)."""
+from benchmark import spans
+
+
+def read(r):
+    return spans.device_ms(r, "chunk",
+                           ("psmc.pass2.select", "psmc.pass2.final"))

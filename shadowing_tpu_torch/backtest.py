@@ -25,6 +25,7 @@ from shadowing_tpu_torch.data.price_data import PriceData
 from shadowing_tpu_torch.data.windows import windows
 from shadowing_tpu_torch.shadow.engine import PathShadowing
 from shadowing_tpu_torch.stats.realized import realized_variance
+from shadowing_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -117,43 +118,46 @@ def rolling_backtest(
         backtest series itself (in-sample); pass disjoint history for an
         out-of-sample fit.
     """
-    Ts = np.asarray(list(Ts), dtype=np.int64)
-    horizon = engine.context.get_out_times()
-    if horizon < Ts.max():
-        raise ValueError(
-            f"engine horizon {horizon} shorter than max maturity {Ts.max()}"
+    with span("psmc.backtest"):
+        Ts = np.asarray(list(Ts), dtype=np.int64)
+        horizon = engine.context.get_out_times()
+        if horizon < Ts.max():
+            raise ValueError(f"engine horizon {horizon} shorter than max "
+                             f"maturity {Ts.max()}")
+        dlnx = (series.dlnx if isinstance(series, PriceData)
+                else as_numpy(series))
+        dlnx = dim_bct(dlnx)[0, 0]  # single-channel series
+
+        # every (context, future) pair fully inside the series
+        n_total = dlnx.shape[-1]
+        ctx_win = windows(dlnx, w=w + int(Ts.max()), s=stride)
+        contexts = ctx_win[:, :w]
+        futures = ctx_win[:, w:]
+        if dates is not None:
+            dates = np.asarray(dates)[w - 1 : n_total - int(Ts.max()) : stride]
+
+        if n_context_splits is None:
+            n_context_splits = max(1, contexts.shape[0] // 64)
+        to_predict = lambda x: realized_variance(x[:, :, 0, :], Ts=Ts,
+                                                 vol=False)
+        predicted, predicted_std = engine.predict(
+            contexts,
+            k=k,
+            to_predict=to_predict,
+            eta=eta,
+            proba_name=proba_name,
+            n_dataset_splits=n_dataset_splits,
+            n_context_splits=n_context_splits,
+            method=method,
         )
-    dlnx = series.dlnx if isinstance(series, PriceData) else as_numpy(series)
-    dlnx = dim_bct(dlnx)[0, 0]  # single-channel series
+        realized = as_numpy(realized_variance(futures, Ts=Ts, vol=False))
 
-    # every (context, future) pair fully inside the series
-    n_total = dlnx.shape[-1]
-    ctx_win = windows(dlnx, w=w + int(Ts.max()), s=stride)
-    contexts = ctx_win[:, :w]
-    futures = ctx_win[:, w:]
-    if dates is not None:
-        dates = np.asarray(dates)[w - 1 : n_total - int(Ts.max()) : stride]
-
-    if n_context_splits is None:
-        n_context_splits = max(1, contexts.shape[0] // 64)
-    to_predict = lambda x: realized_variance(x[:, :, 0, :], Ts=Ts, vol=False)
-    predicted, predicted_std = engine.predict(
-        contexts,
-        k=k,
-        to_predict=to_predict,
-        eta=eta,
-        proba_name=proba_name,
-        n_dataset_splits=n_dataset_splits,
-        n_context_splits=n_context_splits,
-        method=method,
-    )
-    realized = as_numpy(realized_variance(futures, Ts=Ts, vol=False))
-
-    bench = None
-    if benchmark is not None:
-        bench = _ar_benchmark_predictions(
-            benchmark, benchmark_train, dlnx, contexts, Ts, w
-        )
+        bench = None
+        if benchmark is not None:
+            with span("psmc.ar_linear"):
+                bench = _ar_benchmark_predictions(
+                    benchmark, benchmark_train, dlnx, contexts, Ts, w
+                )
 
     return BacktestResult(
         Ts=Ts,

@@ -21,6 +21,8 @@ from pathlib import Path
 
 import torch
 
+from shadowing_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -103,8 +105,17 @@ class Kernel:
     def __init__(self, name: str, argtypes: list):
         self.name = name
         self.argtypes = argtypes
-        self.launches = 0
         self._fn = None
+
+    @property
+    def launches(self) -> int:
+        """Successful launches: the counter ``launch.<name>`` of
+        :mod:`shadowing_tpu_torch.utils.profiling`; assigning sets it."""
+        return profiling.counters().get(f"launch.{self.name}", 0)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        profiling.count(f"launch.{self.name}", n - self.launches)
 
     def launch(self, *args) -> None:
         if self._fn is None:
@@ -117,7 +128,7 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.name}: CUDA launch failed with error "
                                f"{err} ({_error_name(err)})")
-        self.launches += 1
+        profiling.count(f"launch.{self.name}")
 
 
 def _error_name(err: int) -> str:

@@ -36,6 +36,7 @@ from shadowing_tpu_torch.ops.search import (
     pass2_from_bmin,
 )
 from shadowing_tpu_torch.ops.sliding import sliding_dot
+from shadowing_tpu_torch.utils.profiling import span
 
 #: widest embedding the kernel takes
 MAX_DIM = 48
@@ -133,30 +134,33 @@ def score_blockmin_factored(E: torch.Tensor, norms: torch.Tensor,
     :param norms: ``(R, n_out)`` window norms (``+inf`` bars a row)
     :param x_emb: ``(B, d)`` context embeddings
     """
-    dev = E.device
-    check_tensor(E, "E", 3, dev)
-    check_tensor(norms, "norms", 2, dev)
-    check_tensor(x_emb, "x_emb", 2, dev)
-    R, d, Tp = E.shape
-    B = x_emb.shape[0]
-    n_out = norms.shape[1]
-    nblk = n_blocks(n_out)
-    if x_emb.shape[1] != d or norms.shape[0] != R or Tp != nblk * L:
-        raise ValueError(f"shape mismatch: E {tuple(E.shape)}, norms "
-                         f"{tuple(norms.shape)}, x_emb {tuple(x_emb.shape)}")
-    if dev.type == "cpu":
-        return score_blockmin_factored_plain(E, norms, x_emb)
-    if dev.type != "cuda":
-        raise ValueError(f"no blockmin_factored kernel for device {dev}")
-    plan = factored_plan(R, d, n_out, B)
-    if plan.tiles >= 2**31:
-        raise ValueError(f"R={R} rows exceed the kernel's tile count")
-    out = torch.empty((B, R, nblk), dtype=torch.float32, device=dev)
-    for (b0, nb), smem in zip(plan.chunks, plan.smem_bytes):
-        FACTORED.launch(ptr(E), ptr(norms), ptr(x_emb[b0 : b0 + nb]),
-                        ptr(out[b0 : b0 + nb]), R, d, Tp, n_out, nblk, nb,
-                        smem)
-    return out
+    with span("psmc.pass1"):
+        dev = E.device
+        check_tensor(E, "E", 3, dev)
+        check_tensor(norms, "norms", 2, dev)
+        check_tensor(x_emb, "x_emb", 2, dev)
+        R, d, Tp = E.shape
+        B = x_emb.shape[0]
+        n_out = norms.shape[1]
+        nblk = n_blocks(n_out)
+        if x_emb.shape[1] != d or norms.shape[0] != R or Tp != nblk * L:
+            raise ValueError(f"shape mismatch: E {tuple(E.shape)}, norms "
+                             f"{tuple(norms.shape)}, x_emb "
+                             f"{tuple(x_emb.shape)}")
+        if dev.type == "cpu":
+            return score_blockmin_factored_plain(E, norms, x_emb)
+        if dev.type != "cuda":
+            raise ValueError(
+                f"no blockmin_factored kernel for device {dev}")
+        plan = factored_plan(R, d, n_out, B)
+        if plan.tiles >= 2**31:
+            raise ValueError(f"R={R} rows exceed the kernel's tile count")
+        out = torch.empty((B, R, nblk), dtype=torch.float32, device=dev)
+        for (b0, nb), smem in zip(plan.chunks, plan.smem_bytes):
+            FACTORED.launch(ptr(E), ptr(norms), ptr(x_emb[b0 : b0 + nb]),
+                            ptr(out[b0 : b0 + nb]), R, d, Tp, n_out, nblk, nb,
+                            smem)
+        return out
 
 
 def two_pass_search_factored(

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from shadowing_tpu_torch.ops._build import Kernel, ptr
 from shadowing_tpu_torch.ops.sliding import sliding_dot
 from shadowing_tpu_torch.ops.topk import topk_min_batched
+from shadowing_tpu_torch.utils.profiling import span
 
 L = 128                   # window starts per block
 MAX_WIDTH = 3 * L + 1     # widest filter the engine routes to the kernels (385)
@@ -143,29 +144,31 @@ def score_blockmin(y: torch.Tensor, norms: torch.Tensor,
     :param norms: ``(R, n_out)`` window norms (``+inf`` bars a row)
     :param g: ``(B, C, w)`` combined context filters
     """
-    check_tensor(y, "y", 3, y.device)
-    check_tensor(norms, "norms", 2, y.device)
-    check_tensor(g, "g", 3, y.device)
-    R, C, T = y.shape
-    B, Cg, w = g.shape
-    n_out = norms.shape[1]
-    if Cg != C or norms.shape[0] != R or n_out > T - w + 1:
-        raise ValueError(f"shape mismatch: y {tuple(y.shape)}, norms "
-                         f"{tuple(norms.shape)}, g {tuple(g.shape)}")
-    if y.device.type == "cpu":
-        return score_blockmin_plain(y, norms, g)
-    if y.device.type != "cuda":
-        raise ValueError(f"no blockmin_toeplitz kernel for device {y.device}")
-    nblk = n_blocks(n_out)
-    plan = toeplitz_plan(R, C, w, n_out, B)
-    if plan.tiles >= 2**31:
-        raise ValueError(f"R={R} rows exceed the kernel's tile count")
-    out = torch.empty((B, R, nblk), dtype=torch.float32, device=y.device)
-    for (b0, nb), smem in zip(plan.chunks, plan.smem_bytes):
-        TOEPLITZ.launch(ptr(y), ptr(norms), ptr(g[b0 : b0 + nb]),
-                        ptr(out[b0 : b0 + nb]), R, C, T, n_out, nblk, nb, w,
-                        smem)
-    return out
+    with span("psmc.pass1"):
+        check_tensor(y, "y", 3, y.device)
+        check_tensor(norms, "norms", 2, y.device)
+        check_tensor(g, "g", 3, y.device)
+        R, C, T = y.shape
+        B, Cg, w = g.shape
+        n_out = norms.shape[1]
+        if Cg != C or norms.shape[0] != R or n_out > T - w + 1:
+            raise ValueError(f"shape mismatch: y {tuple(y.shape)}, norms "
+                             f"{tuple(norms.shape)}, g {tuple(g.shape)}")
+        if y.device.type == "cpu":
+            return score_blockmin_plain(y, norms, g)
+        if y.device.type != "cuda":
+            raise ValueError(
+                f"no blockmin_toeplitz kernel for device {y.device}")
+        nblk = n_blocks(n_out)
+        plan = toeplitz_plan(R, C, w, n_out, B)
+        if plan.tiles >= 2**31:
+            raise ValueError(f"R={R} rows exceed the kernel's tile count")
+        out = torch.empty((B, R, nblk), dtype=torch.float32, device=y.device)
+        for (b0, nb), smem in zip(plan.chunks, plan.smem_bytes):
+            TOEPLITZ.launch(ptr(y), ptr(norms), ptr(g[b0 : b0 + nb]),
+                            ptr(out[b0 : b0 + nb]), R, C, T, n_out, nblk, nb,
+                            w, smem)
+        return out
 
 
 def _candidate_cross(y: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
@@ -210,45 +213,52 @@ def pass2_from_bmin(
         cap = min(max(k + 384, 512), nb)
     cap = min(max(cap, -(-k // L)), nb)
 
-    # cap best blocks per context — the tournament instead of a flat top-k
-    # or sort over millions of block minima
-    mu_sel, bidx, sel_ok = topk_min_batched(bmin.reshape(B, nb), cap, block=L,
-                                            cap=cap + 128)
-    inf = torch.tensor(float("inf"), device=bmin.device)
-    mu_cap = mu_sel[:, -1] if cap < nb else inf.expand(B)
-    # blocks to flat order (the candidate order fixes the tie rule), carrying
-    # the pass-1 minima along to calibrate the guard below
-    bidx, perm = torch.sort(bidx, dim=1)
-    mu_sorted = torch.gather(mu_sel, 1, perm)
-    r = bidx // nblk
-    j = bidx % nblk
+    with span("psmc.pass2.select"):
+        # cap best blocks per context — the tournament instead of a flat
+        # top-k or sort over millions of block minima
+        mu_sel, bidx, sel_ok = topk_min_batched(bmin.reshape(B, nb), cap,
+                                                block=L, cap=cap + 128)
+        inf = torch.tensor(float("inf"), device=bmin.device)
+        mu_cap = mu_sel[:, -1] if cap < nb else inf.expand(B)
+        # blocks to flat order (the candidate order fixes the tie rule),
+        # carrying the pass-1 minima along to calibrate the guard below
+        bidx, perm = torch.sort(bidx, dim=1)
+        mu_sorted = torch.gather(mu_sel, 1, perm)
+        r = bidx // nblk
+        j = bidx % nblk
 
-    cross = _candidate_cross(y, g, r, j)                          # (B, cap, L)
-    t = j[..., None] * L + torch.arange(L, device=y.device)       # (B, cap, L)
-    valid = t < n_out
-    nsel = norms[r[..., None], t.clamp(max=n_out - 1)]
-    # padded starts and barred rows become a huge finite loser, so the
-    # arithmetic below stays NaN-free
-    nsel = torch.where(valid & torch.isfinite(nsel), nsel,
-                       torch.tensor(1e30, device=y.device))
-    s = nsel - 2.0 * cross
-    flat = r[..., None] * n_out + t                               # (B, cap, L)
-    # final exact selection — the tournament again; the k winners occupy at
-    # most k of the cap candidate blocks, so a tight cap is certified-safe
-    vals, loc, fin_ok = topk_min_batched(s.reshape(B, cap * L), k, block=L,
-                                         cap=k + 128)
-    idx = torch.gather(flat.reshape(B, cap * L), 1, loc)
+    with span("psmc.pass2.rescore"):
+        cross = _candidate_cross(y, g, r, j)                      # (B, cap, L)
+        t = j[..., None] * L + torch.arange(L, device=y.device)   # (B, cap, L)
+        valid = t < n_out
+        nsel = norms[r[..., None], t.clamp(max=n_out - 1)]
+        # padded starts and barred rows become a huge finite loser, so the
+        # arithmetic below stays NaN-free
+        nsel = torch.where(valid & torch.isfinite(nsel), nsel,
+                           torch.tensor(1e30, device=y.device))
+        s = nsel - 2.0 * cross
+        flat = r[..., None] * n_out + t                           # (B, cap, L)
 
-    # self-calibrated guard: the selected blocks' |pass-1 min - exact min|
-    # samples the pass-1 error of the unselected ones; 2x its per-context
-    # max plus the 1e-5 floor bounds it
-    exact_bmin = s.amin(dim=2)
-    err_obs = torch.where(torch.isfinite(mu_sorted) & (exact_bmin < 1e29),
-                          (mu_sorted - exact_bmin).abs(),
-                          torch.zeros_like(exact_bmin)).amax(dim=1)
-    guard = 2.0 * err_obs + 1e-5 * mu_cap.abs() + 1e-12
-    ok = torch.isinf(mu_cap) | (vals[:, -1] + guard < mu_cap)
-    return vals, idx, ok & sel_ok & fin_ok
+    with span("psmc.pass2.final"):
+        # final exact selection — the tournament again; the k winners
+        # occupy at most k of the cap candidate blocks, so a tight cap is
+        # certified-safe
+        vals, loc, fin_ok = topk_min_batched(s.reshape(B, cap * L), k, block=L,
+                                             cap=k + 128)
+        idx = torch.gather(flat.reshape(B, cap * L), 1, loc)
+
+        # self-calibrated guard: the selected blocks' |pass-1 min - exact
+        # min| samples the pass-1 error of the unselected ones; 2x its
+        # per-context max plus the 1e-5 floor bounds it
+        exact_bmin = s.amin(dim=2)
+        err_obs = torch.where(
+            torch.isfinite(mu_sorted) & (exact_bmin < 1e29),
+            (mu_sorted - exact_bmin).abs(),
+            torch.zeros_like(exact_bmin)).amax(dim=1)
+        guard = 2.0 * err_obs + 1e-5 * mu_cap.abs() + 1e-12
+        ok = torch.isinf(mu_cap) | (vals[:, -1] + guard < mu_cap)
+        ok = ok & sel_ok & fin_ok
+    return vals, idx, ok
 
 
 def two_pass_search(

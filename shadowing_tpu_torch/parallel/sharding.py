@@ -42,6 +42,7 @@ from shadowing_tpu_torch.parallel.multihost import (
     rank_device,
     shard_dataset_from_local,
 )
+from shadowing_tpu_torch.utils.profiling import span
 
 DATA_AXIS = "data"
 CTX_AXIS = "ctx"
@@ -379,12 +380,14 @@ def sharded_finalize_shadow(y, flat_idx, x_emb, kernel, n_out, w_extract,
     even when distinct windows tie in f32 distance."""
     from shadowing_tpu_torch.shadow.engine import _exact_rescore
 
-    flat_idx = torch.sort(flat_idx, dim=-1).values
-    paths, idces = sharded_extract(y, flat_idx, n_out, w_extract, mesh)
-    dists = _exact_rescore(x_emb, select_in(paths), kernel, distance)
-    dists, order = torch.sort(dists, dim=-1, stable=True)
-    paths = torch.gather(paths, 1, order[..., None, None].expand_as(paths))
-    idces = torch.gather(idces, 1, order[..., None].expand_as(idces))
+    with span("psmc.finalize"):
+        flat_idx = torch.sort(flat_idx, dim=-1).values
+        paths, idces = sharded_extract(y, flat_idx, n_out, w_extract, mesh)
+        dists = _exact_rescore(x_emb, select_in(paths), kernel, distance)
+        dists, order = torch.sort(dists, dim=-1, stable=True)
+        paths = torch.gather(paths, 1,
+                             order[..., None, None].expand_as(paths))
+        idces = torch.gather(idces, 1, order[..., None].expand_as(idces))
     return dists, paths, idces
 
 

@@ -27,7 +27,6 @@ runs on a mesh of one position, where no collective runs.
 """
 from __future__ import annotations
 
-import time
 from pathlib import Path
 from typing import Callable, Optional, Tuple, Union
 
@@ -58,6 +57,7 @@ from shadowing_tpu_torch.shadow.context import ContextManager, PredictionContext
 from shadowing_tpu_torch.shadow.distance import PathDistance
 from shadowing_tpu_torch.shadow.embedding import PathEmbedding, embed_windows
 from shadowing_tpu_torch.stats.proba import DiscreteProba, Softmax, Uniform
+from shadowing_tpu_torch.utils.profiling import count, span
 
 METHODS = ("auto", "kernel", "fused", "direct")
 #: bytes of device memory kept free for temporaries beside resident E
@@ -69,17 +69,21 @@ _CPU_BUDGET = 1 << 30
 def _memory_budget(device: torch.device) -> int:
     """Byte budget for intermediate tensors: a quarter of the card's free
     memory (leaving room for the dataset, norms and E), 1 GB on the CPU."""
-    if device.type == "cuda":
-        free, _ = torch.cuda.mem_get_info(device)
-        return max(free // 4, 256 << 20)
-    return _CPU_BUDGET
+    count("budget_queries")
+    with span("psmc.budget"):
+        if device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(device)
+            return max(free // 4, 256 << 20)
+        return _CPU_BUDGET
 
 
 def _free_bytes(device: torch.device) -> int:
     """Device memory free for a new resident tensor."""
-    if device.type == "cuda":
-        return torch.cuda.mem_get_info(device)[0]
-    return 4 * _CPU_BUDGET
+    count("budget_queries")
+    with span("psmc.budget"):
+        if device.type == "cuda":
+            return torch.cuda.mem_get_info(device)[0]
+        return 4 * _CPU_BUDGET
 
 
 def _contexts(x_context: Array) -> Array:
@@ -181,10 +185,11 @@ def _prep_context(x_context: torch.Tensor, raw_kernel: torch.Tensor,
     combined filters ``g (B, C, w')`` over the context-adjusted plan kernel.
     The context embeds with the same reduction as the rescored winners, so
     a window equal to the context rescores to exactly 0.0."""
-    x_emb = embed_windows(x_context, raw_kernel)
-    x_norm2 = (x_emb * x_emb).sum(dim=-1)
-    with fp32_exact():
-        g = torch.einsum("bd,dcw->bcw", x_emb, plan_kernel)
+    with span("psmc.prep"):
+        x_emb = embed_windows(x_context, raw_kernel)
+        x_norm2 = (x_emb * x_emb).sum(dim=-1)
+        with fp32_exact():
+            g = torch.einsum("bd,dcw->bcw", x_emb, plan_kernel)
     return x_emb, x_norm2, g
 
 
@@ -212,12 +217,13 @@ def _exact_rescore(x_emb: torch.Tensor, in_paths: torch.Tensor,
 
 def _aggregate_predictions(distances, paths, to_predict, proba_name, eta,
                            select_out):
-    proba = PathShadowing.init_averaging_proba(proba_name,
-                                               distances[:, :, None], eta)
-    values = to_predict(select_out(paths))
-    if not isinstance(values, torch.Tensor):
-        values = torch.as_tensor(np.asarray(values), device=paths.device)
-    return proba.avg(values, axis=1), proba.std(values, axis=1)
+    with span("psmc.aggregate"):
+        proba = PathShadowing.init_averaging_proba(
+            proba_name, distances[:, :, None], eta)
+        values = to_predict(select_out(paths))
+        if not isinstance(values, torch.Tensor):
+            values = torch.as_tensor(np.asarray(values), device=paths.device)
+        return proba.avg(values, axis=1), proba.std(values, axis=1)
 
 
 def _smile_inputs(dists, out_paths, eta: float, x_init: float):
@@ -315,8 +321,8 @@ class PathShadowing:
         #: one line per distinct routing decision (route picked, gates
         #: granted or declined with their byte math)
         self.routing_log: list = []
-        #: metrics of the most recent public call (entry, wall seconds,
-        #: route, shapes, redo count)
+        #: metrics of the most recent public call (entry, route, shapes,
+        #: redo count)
         self.last_metrics: dict = {}
         self._last_search: dict = {}
 
@@ -324,11 +330,10 @@ class PathShadowing:
         if msg not in self.routing_log:
             self.routing_log.append(msg)
 
-    def _record_metrics(self, entry: str, t0: float, *, B: int, k: int,
+    def _record_metrics(self, entry: str, *, B: int, k: int,
                         redo_contexts: int = 0, **extra) -> None:
         self.last_metrics = {
             "entry": entry,
-            "wall_s": time.perf_counter() - t0,
             "B": B,
             "k": k,
             **self._last_search,
@@ -465,9 +470,10 @@ class PathShadowing:
             # most one nonzero tap in the context-adjusted kernel
             diag = bool((np.count_nonzero(kernel.reshape(kernel.shape[0], -1),
                                           axis=1) <= 1).all())
-            self._norms = psh.sharded_window_norms(
-                self.y, self._tensor(kernel), n_out,
-                min(n_splits, self.y.shape[0]), diag, self.R, self._mesh)
+            with span("psmc.norms"):
+                self._norms = psh.sharded_window_norms(
+                    self.y, self._tensor(kernel), n_out,
+                    min(n_splits, self.y.shape[0]), diag, self.R, self._mesh)
         return self._norms
 
     def factored_responses(self) -> torch.Tensor:
@@ -476,8 +482,10 @@ class PathShadowing:
         evicted."""
         if self._E is None:
             kernel, n_out = self._plan()
-            self._E = factored_ops.build_factored(self.y, self._tensor(kernel),
-                                                  n_out)
+            count("e_builds")
+            with span("psmc.build_e"):
+                self._E = factored_ops.build_factored(
+                    self.y, self._tensor(kernel), n_out)
         return self._E
 
     # -- search ------------------------------------------------------------
@@ -485,54 +493,58 @@ class PathShadowing:
                 method: str, tournament_cap: Optional[int] = None):
         """Certified search and finalize: ``(dists (B, k), paths (B, k, C,
         w + out_times), idces (B, k, 2), n_redo)`` on the device."""
-        if method not in METHODS:
-            raise ValueError(
-                f"unknown method {method!r}; the methods are "
-                f"{', '.join(repr(m) for m in METHODS)}")
-        x = as_torch_f32(_contexts(x_context), self.device)
-        if x.shape[-1] != self.embedding.width:
-            raise ValueError(
-                f"context length {x.shape[-1]} must equal the embedding "
-                f"width {self.embedding.width}")
-        kernel, n_out = self._plan()
-        B = x.shape[0]
-        d = self.embedding.dim
-        n_candidates = self.R * n_out
-        if not 1 <= k <= n_candidates:
-            raise ValueError(f"k={k} must be in [1, {n_candidates}] "
-                             f"(= R * valid window starts)")
-        if method == "auto":
-            if self._kernel_ok(kernel):
-                method = "kernel"
-            else:
-                method = ("fused" if self.distance.supports_expansion
-                          else "direct")
-        elif method == "kernel" and not self._kernel_ok(kernel):
-            raise ValueError(
-                "the kernel search requires an expansion distance with the "
-                "norm2 - 2*cross score form and a filter width <= "
-                f"{search_ops.MAX_WIDTH}")
-        elif method == "fused" and not self.distance.supports_expansion:
-            raise ValueError(
-                f"the fused search requires an expansion distance; "
-                f"{type(self.distance).__name__} has none")
-        if n_splits is None:
-            n_splits = self._auto_splits(B, n_out, d, method)
-        # each chunk holds at least k candidates: any n_splits returns the
-        # same result
-        n_splits = max(1, min(n_splits, n_candidates // k))
-        self._log_route(f"method={method} (B={B}, k={k}, R={self.R}, "
-                        f"n_out={n_out})")
-        self._last_search = {"method": method, "n_splits": n_splits,
-                             "n_out": n_out, "R": self.R}
+        with span("psmc.plan"):
+            if method not in METHODS:
+                raise ValueError(
+                    f"unknown method {method!r}; the methods are "
+                    f"{', '.join(repr(m) for m in METHODS)}")
+            x = as_torch_f32(_contexts(x_context), self.device)
+            if x.shape[-1] != self.embedding.width:
+                raise ValueError(
+                    f"context length {x.shape[-1]} must equal the embedding "
+                    f"width {self.embedding.width}")
+            kernel, n_out = self._plan()
+            B = x.shape[0]
+            d = self.embedding.dim
+            n_candidates = self.R * n_out
+            if not 1 <= k <= n_candidates:
+                raise ValueError(f"k={k} must be in [1, {n_candidates}] "
+                                 f"(= R * valid window starts)")
+            if method == "auto":
+                if self._kernel_ok(kernel):
+                    method = "kernel"
+                else:
+                    method = ("fused" if self.distance.supports_expansion
+                              else "direct")
+            elif method == "kernel" and not self._kernel_ok(kernel):
+                raise ValueError(
+                    "the kernel search requires an expansion distance with "
+                    "the norm2 - 2*cross score form and a filter width <= "
+                    f"{search_ops.MAX_WIDTH}")
+            elif method == "fused" and not self.distance.supports_expansion:
+                raise ValueError(
+                    f"the fused search requires an expansion distance; "
+                    f"{type(self.distance).__name__} has none")
+            if n_splits is None:
+                n_splits = self._auto_splits(B, n_out, d, method)
+            # each chunk holds at least k candidates: any n_splits returns
+            # the same result
+            n_splits = max(1, min(n_splits, n_candidates // k))
+            self._log_route(f"method={method} (B={B}, k={k}, R={self.R}, "
+                            f"n_out={n_out})")
+            self._last_search = {"method": method, "n_splits": n_splits,
+                                 "n_out": n_out, "R": self.R}
 
-        # every step below runs on this rank's rows and merges the k winners
-        # over the mesh; B, k, the route and the reduced ok are the same on
-        # every rank, so every rank enters the same collectives
-        mesh = self._mesh
-        y = self.y
-        kernel_t = self._tensor(kernel)
-        raw_kernel = self._tensor(self.embedding.kernel)
+            # every step below runs on this rank's rows and merges the k
+            # winners over the mesh; B, k, the route and the reduced ok are
+            # the same on every rank, so every rank enters the same
+            # collectives
+            mesh = self._mesh
+            y = self.y
+            kernel_t = self._tensor(kernel)
+            raw_kernel = self._tensor(self.embedding.kernel)
+        count("searches")
+        count("contexts", B)
         x_emb, x_norm2, g = _prep_context(x, raw_kernel, kernel_t)
         escalate = None
 
@@ -560,6 +572,7 @@ class PathShadowing:
                     # pass-2 temporaries at the escalated cap are GB-scale
                     # at large k: give the retry E's memory (rebuilt lazily)
                     self._E = None
+                    count("e_evictions")
                     self._log_route("redo: evicted factored E cache for the "
                                     "escalated retry")
                 if tournament_cap is None:
@@ -577,28 +590,35 @@ class PathShadowing:
                 n_splits)
             ok = torch.ones((B,), dtype=torch.bool, device=y.device)
 
-        rows = torch.nonzero(~ok).flatten()
-        n_redo = rows.numel()
-        if n_redo:
-            # tier 1 retries the kernel at the escalated cap; tier 2 resolves
-            # anything still uncertified with the sort-exact oracle
-            flat_idx = flat_idx.clone()
-            if escalate is not None:
-                _, idx_esc, ok_esc = escalate()
-                took = rows[ok_esc[rows]]
-                flat_idx[took] = idx_esc[took]
-                rows = rows[~ok_esc[rows]]
-                self._log_route(
-                    f"redo: escalated cap={esc_cap} certified "
-                    f"{took.numel()}/{n_redo} failed contexts")
-            if rows.numel():
-                if self._E is not None:
-                    self._E = None
-                    self._log_route("redo: evicted factored E cache for the "
-                                    "oracle")
-                flat_idx[rows] = psh.sharded_direct_search(
-                    y, x_emb[rows], kernel_t, k, n_out, self.distance, self.R,
-                    mesh, self._auto_splits(rows.numel(), n_out, d))[1]
+        with span("psmc.redo"):
+            rows = torch.nonzero(~ok).flatten()
+            n_redo = rows.numel()
+            count("certified", B - n_redo)
+            if n_redo:
+                # tier 1 retries the kernel at the escalated cap; tier 2
+                # resolves anything still uncertified with the sort-exact
+                # oracle
+                flat_idx = flat_idx.clone()
+                if escalate is not None:
+                    _, idx_esc, ok_esc = escalate()
+                    took = rows[ok_esc[rows]]
+                    flat_idx[took] = idx_esc[took]
+                    rows = rows[~ok_esc[rows]]
+                    count("redo_tier1", took.numel())
+                    self._log_route(
+                        f"redo: escalated cap={esc_cap} certified "
+                        f"{took.numel()}/{n_redo} failed contexts")
+                if rows.numel():
+                    count("redo_tier2", rows.numel())
+                    if self._E is not None:
+                        self._E = None
+                        count("e_evictions")
+                        self._log_route("redo: evicted factored E cache for "
+                                        "the oracle")
+                    flat_idx[rows] = psh.sharded_direct_search(
+                        y, x_emb[rows], kernel_t, k, n_out, self.distance,
+                        self.R, mesh,
+                        self._auto_splits(rows.numel(), n_out, d))[1]
 
         w_extract = x.shape[-1] + self.context.get_out_times()
         dists, paths, idces = psh.sharded_finalize_shadow(
@@ -635,13 +655,13 @@ class PathShadowing:
         if exact_dtype not in ("float32", "float64"):
             raise ValueError(f"exact_dtype must be float32/float64, got "
                              f"{exact_dtype!r}")
-        t0 = time.perf_counter()
-        dists, paths, idces, n_redo = self._search(x_context, k, n_splits,
-                                                   method)
-        out = as_numpy(dists), as_numpy(paths), as_numpy(idces)
-        if exact_dtype == "float64":
-            out = self._rescore_host_f64(x_context, out[1], out[2])
-        self._record_metrics("shadow", t0, B=len(out[0]), k=k,
+        with span("psmc.shadow"):
+            dists, paths, idces, n_redo = self._search(x_context, k, n_splits,
+                                                       method)
+            out = as_numpy(dists), as_numpy(paths), as_numpy(idces)
+            if exact_dtype == "float64":
+                out = self._rescore_host_f64(x_context, out[1], out[2])
+        self._record_metrics("shadow", B=len(out[0]), k=k,
                              redo_contexts=n_redo, exact_dtype=exact_dtype)
         return out
 
@@ -674,10 +694,10 @@ class PathShadowing:
         """:meth:`shadow` returning device tensors. ``tournament_cap`` forces
         the block count of pass 2, or of the fused route's tournament (a
         test hook for the redo path)."""
-        t0 = time.perf_counter()
-        dists, paths, idces, n_redo = self._search(x_context, k, n_splits,
-                                                   method, tournament_cap)
-        self._record_metrics("shadow_device", t0, B=dists.shape[0], k=k,
+        with span("psmc.shadow_device"):
+            dists, paths, idces, n_redo = self._search(
+                x_context, k, n_splits, method, tournament_cap)
+        self._record_metrics("shadow_device", B=dists.shape[0], k=k,
                              redo_contexts=n_redo)
         return dists, paths, idces
 
@@ -707,12 +727,13 @@ class PathShadowing:
         return as_numpy(avg), as_numpy(std)
 
     def _smiles(self, dists, paths, Ts, Ms, eta, r, x_init):
-        prices, weights = _smile_inputs(
-            dists, self.context.select_out_context(paths), float(eta),
-            float(x_init))
-        # prices start at x_init by construction: skip validation
-        return compute_smile_batch(prices, Ts, Ms, r, weights=weights,
-                                   validate=False)
+        with span("psmc.smile"):
+            prices, weights = _smile_inputs(
+                dists, self.context.select_out_context(paths), float(eta),
+                float(x_init))
+            # prices start at x_init by construction: skip validation
+            return compute_smile_batch(prices, Ts, Ms, r, weights=weights,
+                                       validate=False)
 
     def conditional_smile(
         self,
@@ -727,10 +748,11 @@ class PathShadowing:
         method: str = "auto",
     ):
         """Shadow then price: conditional Hedged-MC smiles, one per context."""
-        t0 = time.perf_counter()
-        dists, paths, _, n_redo = self._search(x_context, k, n_splits, method)
-        smiles = self._smiles(dists, paths, Ts, Ms, eta, r, x_init)
-        self._record_metrics("conditional_smile", t0, B=len(smiles), k=k,
+        with span("psmc.conditional_smile"):
+            dists, paths, _, n_redo = self._search(x_context, k, n_splits,
+                                                   method)
+            smiles = self._smiles(dists, paths, Ts, Ms, eta, r, x_init)
+        self._record_metrics("conditional_smile", B=len(smiles), k=k,
                              redo_contexts=n_redo)
         return smiles
 
@@ -754,13 +776,13 @@ class PathShadowing:
 
         :return: ``(avg (B, ...), std (B, ...), [B Smile objects])``
         """
-        t0 = time.perf_counter()
-        d, p, _, n_redo = self._search(x_context, k, n_splits, method)
-        a, b = _aggregate_predictions(d, p, to_predict, proba_name, eta,
-                                      self.context.select_out_context)
-        smiles = self._smiles(d, p, Ts, Ms, eta_smile, r, x_init)
-        a, b = as_numpy(a), as_numpy(b)
-        self._record_metrics("predict_and_smile", t0, B=len(a), k=k,
+        with span("psmc.predict_and_smile"):
+            d, p, _, n_redo = self._search(x_context, k, n_splits, method)
+            a, b = _aggregate_predictions(d, p, to_predict, proba_name, eta,
+                                          self.context.select_out_context)
+            smiles = self._smiles(d, p, Ts, Ms, eta_smile, r, x_init)
+            a, b = as_numpy(a), as_numpy(b)
+        self._record_metrics("predict_and_smile", B=len(a), k=k,
                              redo_contexts=n_redo)
         return a, b, smiles
 
@@ -785,27 +807,29 @@ class PathShadowing:
         one route, so a short remainder never drops below
         ``FACTORED_MIN_B`` onto the Toeplitz kernel."""
         del cuda
-        t0 = time.perf_counter()
-        x = _contexts(x_context)
-        B = x.shape[0]
-        chunk = -(-B // n_context_splits)
-        pad = (-B) % chunk
-        if pad:
-            if isinstance(x, torch.Tensor):
-                x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
-            else:
-                x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
-        preds, stds, n_redo = [], [], 0
-        for s in range(0, x.shape[0], chunk):
-            d, p, _, n = self._search(x[s : s + chunk], k, n_dataset_splits,
-                                      method)
-            a, b = _aggregate_predictions(d, p, to_predict, proba_name, eta,
-                                          self.context.select_out_context)
-            del d, p
-            preds.append(as_numpy(a))
-            stds.append(as_numpy(b))
-            n_redo += n
-        self._record_metrics("predict", t0, B=B, k=k, redo_contexts=n_redo,
+        with span("psmc.predict"):
+            x = _contexts(x_context)
+            B = x.shape[0]
+            chunk = -(-B // n_context_splits)
+            pad = (-B) % chunk
+            if pad:
+                if isinstance(x, torch.Tensor):
+                    x = torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+                else:
+                    x = np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+            preds, stds, n_redo = [], [], 0
+            for s in range(0, x.shape[0], chunk):
+                with span("psmc.chunk"):
+                    d, p, _, n = self._search(x[s : s + chunk], k,
+                                              n_dataset_splits, method)
+                    a, b = _aggregate_predictions(
+                        d, p, to_predict, proba_name, eta,
+                        self.context.select_out_context)
+                    del d, p
+                    preds.append(as_numpy(a))
+                    stds.append(as_numpy(b))
+                    n_redo += n
+        self._record_metrics("predict", B=B, k=k, redo_contexts=n_redo,
                              n_context_chunks=len(preds))
         return np.concatenate(preds)[:B], np.concatenate(stds)[:B]
 

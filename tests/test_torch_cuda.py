@@ -348,6 +348,25 @@ def test_generate_returns_a_cuda_tensor(cuda, tmp_path):
     assert torch.equal(again, out)
 
 
+def test_kernel_launches_are_the_counter_store(cuda):
+    """``Kernel.launches`` reads the store of ``utils/profiling.py``: after
+    a K1 search (one context) and a K2 search (nine) both read what the
+    store counts, and each kernel counted its launches there."""
+    from shadowing_tpu_torch.utils import profiling
+
+    ds, ctx = mesh_problem()
+    eng = mesh_engine(ds, device=cuda)
+    before = profiling.counters()
+    eng.shadow(ctx[:1], k=300)
+    eng.shadow(ctx, k=300)
+    after = profiling.counters()
+    for kernel in (search.TOEPLITZ, factored.FACTORED):
+        key = f"launch.{kernel.name}"
+        assert kernel.launches == after[key]
+        assert after[key] > before.get(key, 0)
+    assert after["searches"] - before.get("searches", 0) == 2
+
+
 def mesh_problem():
     rng = np.random.default_rng(5)
     ds = rng.normal(0, 0.011, size=(301, 1, 900)).astype(np.float32)
