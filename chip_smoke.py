@@ -5,18 +5,22 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card::
 
     python3 chip_smoke.py
 
-It builds both pass-1 kernels from ``shadowing_tpu_torch/csrc`` with
-``nvcc``, holds each against its plain PyTorch version on the card, then
+It builds both pass-1 kernels and pass 2's rescore kernel from
+``shadowing_tpu_torch/csrc`` with ``nvcc``, holds each against its plain
+PyTorch version on the card, then
 drives the main path at the README workflow scale (32,768 trajectories x
 4,096 days, ``Identity(20)``, ``RelativeMSE``, horizon 20, k = 1,024):
 
 1. device: the card's name and power limit;
-2. build: both kernels, with the compiler's register report;
+2. build: the kernels, with the compiler's register report;
 3. kernel vs plain: K1 at (B=1, w=20), (B=4, w=126), a ragged C=2
    shape and a C=16 shape (channel groups); K2 at (B=64, d=20), (65, 20), (128, 20) and (8, 48); each with
    its time, its bound (bytes or operations at the card's published
    peaks), the achieved GB/s and TFLOP/s and the share of the bound; then
-   both kernels over B = 1 .. 64 at w = d = 20;
+   both kernels over B = 1 .. 64 at w = d = 20; 3b. pass 2's rescore
+   kernel at the benchmark cells' (B, w, cap) = (64, 20, 1,408), (64, 20,
+   16,768) and (1, 126, 10,384), with its time, the plain version's and
+   its bound (bytes);
 4. one context: ``predict_and_smile`` on the last 20 daily returns of the
    bundled S&P-like series, checked against the on-card direct oracle;
 5. 64 contexts: ``predict`` through the factored kernel, checked against
@@ -92,6 +96,9 @@ TOL = 1e-5                    # kernel vs plain: max abs error / max |score|
 #: cores, bf16 on the tensor cores
 HBM_BPS, FP32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 989e12
 SWEEP_B = (1, 2, 4, 8, 16, 32, 64)  # phase 3: contexts per call, w = d = 20
+#: phase 3b: pass 2's rescore at the benchmark cells' (B, w, cap): the
+#: backtest at k = 1,024 and 16,384, the Foveal-126 query at k = 10,000
+RESCORE_SHAPES = ((64, 20, 1408), (64, 20, 16768), (1, 126, 10384))
 LIBRARY = ("none: no one PyTorch call folds the minimum over each 128-start "
            "block into norms - 2 * cross")
 #: tests/test_fuzz.py's float32 tie window: ids may differ only between
@@ -352,6 +359,95 @@ def kernels_vs_plain(y, device) -> dict:
     return {"shapes": res, "sweep": sweep}
 
 
+def rescore_work(y, g, cap: int) -> tuple:
+    """Bytes, flop and peak rate of one pass-2 rescore: each selected
+    block's segment, norms and (r, j) read once, its scores and minimum
+    written once; fp32 FMAs on the CUDA cores."""
+    C = y.shape[1]
+    B, _, w = g.shape
+    n = B * cap
+    nbytes = 4 * n * (C * (127 + w) + 2 * 128 + 1) + 16 * n + 4 * g.numel()
+    return nbytes, 2 * n * 128 * C * w, FP32_FLOPS
+
+
+def kernel_device_ms(fn, name: str, n: int = 20) -> float:
+    """Mean device time (ms) per call of ``fn`` of the kernels whose name
+    holds ``name``, from ``torch.profiler`` over ``n`` calls after one
+    warm-up: events around a call that the host enqueues more slowly than
+    the card runs it would time the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages() if name in e.key)
+    return us / n / 1e3
+
+
+def rescore_vs_plain(y, device) -> list:
+    """Phase 3b: pass 2's rescore kernel against its plain version at the
+    three cells' shapes ``RESCORE_SHAPES`` over the phase-3 rows, on sorted
+    random block selections: the same 1e30 sentinels, the other scores
+    within ``TOL`` of their largest |score|, ``exact_bmin`` the exact
+    minimum; the kernel's device time (profiler; ``event_ms`` the events'
+    time around a call, host enqueue included) and the plain version's
+    beside the bound."""
+    import torch
+
+    from shadowing_tpu_torch.ops import search
+
+    Rn, C, Tn = y.shape
+    gen = torch.Generator(device=device).manual_seed(3)
+    res = []
+    for B, w, cap in RESCORE_SHAPES:
+        n_out = Tn - w + 1
+        nblk = -(-n_out // 128)
+        norms = torch.nn.functional.conv1d(
+            y * y, torch.ones((1, C, w), device=device))[:, 0].contiguous()
+        g = torch.randn((B, C, w), generator=gen, device=device)
+        bidx = torch.stack([torch.randperm(Rn * nblk, generator=gen,
+                                           device=device)[:cap]
+                            for _ in range(B)]).sort(dim=1).values
+        r, j = bidx // nblk, bidx % nblk
+        kernel_fn = lambda: search.rescore_candidates(y, norms, g, r, j)
+        plain_fn = lambda: search.rescore_candidates_plain(y, norms, g, r, j)
+        (s, bmin), (s_want, _) = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        big = s_want >= 1e29
+        scale = float(s_want[~big].abs().max())
+        err = float((s - s_want)[~big].abs().max())
+        label = f"rescore_candidates B={B} w={w} cap={cap} ({Rn}x{Tn})"
+        if (torch.isnan(s).any() or err > TOL * scale
+                or not torch.equal(big, s >= 1e29)
+                or not torch.equal(bmin, s.amin(2))):
+            raise AssertionError(f"{label}: kernel disagrees with its plain "
+                                 f"version (error {err:.3e} of {scale:.4g})")
+        del s, bmin, s_want
+        nbytes, flop, peak = rescore_work(y, g, cap)
+        ms = kernel_device_ms(kernel_fn, "rescore_candidates")
+        bound_ms, by = bound(nbytes, flop, peak)
+        entry = {"shape": label, "ms": ms, "event_ms": median_ms(kernel_fn),
+              "bound_ms": bound_ms, "bound_by": by, "gb_s": nbytes / ms / 1e6,
+              "tflop_s": flop / ms / 1e9, "share": bound_ms / ms,
+              "max_abs_err": err, "plain_ms": median_ms(plain_fn),
+              "blocks_per_sm": blocks_per_sm("rescore_candidates", C, w)}
+        log(f"  {label}: max_abs_err {err:.3e} = {err / scale:.3e} of "
+            f"max|score| {scale:.4g}; kernel {ms:.4f} ms (events "
+            f"{entry['event_ms']:.4f} ms), plain "
+            f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.4f} ms "
+            f"({entry['bound_by']}), {entry['gb_s']:.0f} GB/s, "
+            f"{100 * entry['share']:.1f} % of the bound, "
+            f"{entry['blocks_per_sm']} blocks/SM")
+        res.append(entry)
+        del norms, g, bidx, r, j
+        torch.cuda.empty_cache()
+    return res
+
+
 def main_path(dataset, device) -> dict:
     """Phases 4-6 through the public API."""
     import torch
@@ -365,7 +461,7 @@ def main_path(dataset, device) -> dict:
         realized_variance,
     )
     from shadowing_tpu_torch.ops.factored import FACTORED
-    from shadowing_tpu_torch.ops.search import TOEPLITZ
+    from shadowing_tpu_torch.ops.search import RESCORE, TOEPLITZ
     from shadowing_tpu_torch.pricing.black_scholes import (
         SIGMA_HI,
         SIGMA_LO,
@@ -384,19 +480,20 @@ def main_path(dataset, device) -> dict:
                                      Ms=MS, eta=0.1, eta_smile=0.075)
 
     # ---- phase 4: one context -------------------------------------------
-    TOEPLITZ.launches = FACTORED.launches = 0
+    TOEPLITZ.launches = FACTORED.launches = RESCORE.launches = 0
     t0 = time.perf_counter()
     vars_, _, smiles = e2e()
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     warm = median_wall(e2e)
-    k1_launches = TOEPLITZ.launches
+    k1_launches, p2_launches = TOEPLITZ.launches, RESCORE.launches
     log(f"phase 4 predict_and_smile (B=1, k={K}): first call {first:.3f} s, "
-        f"warm median of 5 {warm:.4f} s; K1 launches {k1_launches}, "
-        f"route {eng.last_metrics['method']}, contexts redone "
-        f"{eng.last_metrics['redo_contexts']}")
-    if k1_launches == 0:
-        raise AssertionError("the one-context main path never launched K1")
+        f"warm median of 5 {warm:.4f} s; K1 launches {k1_launches}, P2 "
+        f"launches {p2_launches}, route {eng.last_metrics['method']}, "
+        f"contexts redone {eng.last_metrics['redo_contexts']}")
+    if k1_launches == 0 or p2_launches == 0:
+        raise AssertionError("the one-context main path never launched K1 "
+                             "or P2")
 
     d, p, i = (a.cpu().numpy() for a in eng.shadow_device(ctx, k=K))
     if not (np.diff(d[0]) >= 0).all():
@@ -440,19 +537,21 @@ def main_path(dataset, device) -> dict:
     def batched():
         return eng.predict(ctx64, k=K, to_predict=to_predict, eta=0.1)
 
-    TOEPLITZ.launches = FACTORED.launches = 0
+    TOEPLITZ.launches = FACTORED.launches = RESCORE.launches = 0
     t0 = time.perf_counter()
     pred, _ = batched()
     torch.cuda.synchronize()
     first64 = time.perf_counter() - t0
     warm64 = median_wall(batched)
     k2_launches = FACTORED.launches
+    p2_launches += RESCORE.launches
     log(f"phase 5 predict (B=64, k={K}): E build {e_build:.3f} s, first call "
         f"{first64:.3f} s, warm median of 5 {warm64:.4f} s; K2 launches "
-        f"{k2_launches}, K1 launches {TOEPLITZ.launches}, contexts redone "
+        f"{k2_launches}, K1 launches {TOEPLITZ.launches}, P2 launches "
+        f"{RESCORE.launches}, contexts redone "
         f"{eng.last_metrics['redo_contexts']}")
-    if k2_launches == 0:
-        raise AssertionError("the batched main path never launched K2")
+    if k2_launches == 0 or RESCORE.launches == 0:
+        raise AssertionError("the batched main path never launched K2 or P2")
     if not any(s.startswith("factored pass-1 routed") for s in eng.routing_log):
         raise AssertionError(f"no factored grant in {eng.routing_log}")
     redone = [s for s in eng.routing_log if s.startswith("redo")]
@@ -475,14 +574,20 @@ def main_path(dataset, device) -> dict:
 
     # ---- phase 6: the redo path -----------------------------------------
     cap = K // 128 // 2
+    RESCORE.launches = 0
     _, _, i_redo = eng.shadow_device(ctx, k=K, tournament_cap=cap)
     redo = eng.last_metrics["redo_contexts"]
     if redo < 1 or not np.array_equal(i_redo.cpu().numpy(), i):
         raise AssertionError(f"redo path: redo_contexts={redo}, ids differ")
+    if RESCORE.launches < 2:
+        raise AssertionError(f"redo path: P2 launches {RESCORE.launches}, "
+                             "not the first pass 2 and its escalated retry")
+    p2_launches += RESCORE.launches
     log(f"phase 6 redo (tournament_cap={cap}): {redo} context redone, ids "
-        f"equal phase 4's; "
+        f"equal phase 4's, P2 launches {RESCORE.launches}; "
         f"{[s for s in eng.routing_log if s.startswith('redo')]}")
-    return {"K1": k1_launches, "K2": k2_launches, "e2e_warm_s": warm,
+    return {"K1": k1_launches, "K2": k2_launches, "P2": p2_launches,
+            "e2e_warm_s": warm,
             "predict64_warm_s": warm64, "e_build_s": e_build,
             # what phase 15 is held to
             "ctx": ctx, "ctx64": ctx64, "ids": i, "pred64": pred,
@@ -530,16 +635,16 @@ def dataset_contexts(dataset, w: int, n: int, seed: int) -> np.ndarray:
 
 
 class Launches:
-    """K1/K2 launch counts of one driven path: zeroed on entry, read on
-    exit, summed over every path into ``totals``."""
+    """K1/K2/P2 (pass 2's rescore) launch counts of one driven path: zeroed
+    on entry, read on exit, summed over every path into ``totals``."""
 
-    totals = {"K1": 0, "K2": 0}
+    totals = {"K1": 0, "K2": 0, "P2": 0}
 
     def __enter__(self):
         from shadowing_tpu_torch.ops.factored import FACTORED
-        from shadowing_tpu_torch.ops.search import TOEPLITZ
+        from shadowing_tpu_torch.ops.search import RESCORE, TOEPLITZ
 
-        self.kernels = {"K1": TOEPLITZ, "K2": FACTORED}
+        self.kernels = {"K1": TOEPLITZ, "K2": FACTORED, "P2": RESCORE}
         for k in self.kernels.values():
             k.launches = 0
         return self
@@ -807,6 +912,7 @@ def backtest(returns, device) -> None:
         with Launches() as ran:
             res, first, warm = first_and_warm(run)
         ran.require("K2", f"the backtest at k={k}")
+        ran.require("P2", f"the backtest at k={k}")
         peak = torch.cuda.max_memory_allocated() / 2**30
         if not (res.predicted.shape == (n_dates, len(TS))
                 and np.isfinite(res.predicted).all()
@@ -864,6 +970,32 @@ def backtest(returns, device) -> None:
     if redone:
         raise AssertionError(f"the backtest redid a certification: {redone}")
     log("  checks: no context redone in any chunk (routing_log)")
+    # the tier-1 redo keeps E resident at k = 16,384: a forced redo of one
+    # chunk (escalated cap k + 1,536), then the retry's two-pass search at the
+    # largest cap it takes at this k, twice a memoised k + 384
+    k, ctx = K_BIG, ctx[:64]
+    x = torch.as_tensor(ctx, dtype=torch.float32, device=device)[:, None, :]
+    _, _, g = _prep_context(x, bank, bank)
+    torch.cuda.reset_peak_memory_stats()
+    cap = k // 128 // 2
+    _, _, i_redo = eng.shadow_device(ctx, k=k, tournament_cap=cap)
+    redo = eng.last_metrics["redo_contexts"]
+    _, _, i_want = eng.shadow_device(ctx, k=k)
+    big = 2 * (k + 384)
+    _, _, ok = search.two_pass_search(eng.y, norms, g, k, big)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if (redo < 1 or eng._E is None or not bool(ok.all())
+            or not torch.equal(i_redo, i_want)):
+        raise AssertionError(
+            f"tier-1 redo at k={k}: redid {redo}, E resident "
+            f"{eng._E is not None}, cap={big} certified {int(ok.sum())}/64, "
+            f"ids equal {torch.equal(i_redo, i_want)}")
+    log(f"  tier-1 redo beside E ({E.numel() * 4 / 2**30:.2f} GiB) at k={k}: "
+        f"tournament_cap={cap} redid {redo} of 64 contexts, E kept, ids = "
+        f"the unforced search's; two_pass_search at cap={big} certified "
+        f"64/64; peak allocated {peak:.2f} GiB")
+    del x, g, i_redo, i_want
     # a 65-context chunk (the default n_dates // 64 splits of 130 dates)
     x = torch.randn((65, W), generator=torch.Generator(device=device)
                     .manual_seed(0), device=device) * 0.011
@@ -1078,6 +1210,7 @@ def scattering_search(data, device) -> None:
                                           Ts=TS, Ms=MS, eta=0.1,
                                           eta_smile=0.075))
     ran.require("K1", "predict_and_smile on the generated dataset")
+    ran.require("P2", "predict_and_smile on the generated dataset")
     _, _, i = eng.shadow(ctx, k=K)
     _, _, i_dir = eng.shadow(ctx, k=K, method="direct")
     d0, _, i0 = eng.shadow(out[0, 0, :W].cpu().numpy(), k=4)
@@ -1099,6 +1232,7 @@ def scattering_search(data, device) -> None:
         (pred, _), first, warm = first_and_warm(
             lambda: eng.predict(ctx64, k=K, to_predict=to_predict, eta=0.1))
     ran.require("K2", "the 64-context predict on the generated dataset")
+    ran.require("P2", "the 64-context predict on the generated dataset")
     _, _, i64 = eng.shadow(ctx64, k=K)
     _, _, i_dir = eng.shadow(ctx64[:2], k=K, method="direct")
     if not (np.array_equal(i64[:2], i_dir) and pred.shape == (64, len(TS))
@@ -1229,7 +1363,7 @@ def mesh_worker(out: Path, device: str) -> None:
     from shadowing_tpu_torch.models.scattering import build_filter_bank
     from shadowing_tpu_torch.models.scattering.synthesis import synthesize_batch
     from shadowing_tpu_torch.ops.factored import FACTORED
-    from shadowing_tpu_torch.ops.search import TOEPLITZ
+    from shadowing_tpu_torch.ops.search import RESCORE, TOEPLITZ
     from shadowing_tpu_torch.parallel import (
         LAST_MERGE_PAYLOAD,
         data_mesh,
@@ -1256,10 +1390,11 @@ def mesh_worker(out: Path, device: str) -> None:
 
     def driven(name, fn):
         """The counts zeroed before one driven path and read after it."""
-        TOEPLITZ.launches = FACTORED.launches = 0
+        TOEPLITZ.launches = FACTORED.launches = RESCORE.launches = 0
         res, first, warm = first_and_warm(fn, 5)
         info[name] = {"first_s": first, "warm_s": warm,
-                      "K1": TOEPLITZ.launches, "K2": FACTORED.launches}
+                      "K1": TOEPLITZ.launches, "K2": FACTORED.launches,
+                      "P2": RESCORE.launches}
         return res
 
     ctx, ctx64 = inp["ctx"], inp["ctx64"]
@@ -1370,9 +1505,10 @@ def mesh_phase(path: dict, device) -> dict:
                                      f"0 in {name}")
         if info["task_split"] != [MESH_RANKS, r]:
             raise AssertionError(f"rank {r}: task_split {info['task_split']}")
-        for tag, kernel in (("k1", "K1"), ("k2", "K2")):
+        for tag, kernel in (("k1", "K1"), ("k1", "P2"), ("k2", "K2"),
+                            ("k2", "P2")):
             if info[tag][kernel] == 0:
-                raise AssertionError(f"rank {r}: the mesh path never "
+                raise AssertionError(f"rank {r}: the mesh path {tag} never "
                                      f"launched {kernel}")
         if not info["factored_grant"] or info["redo_before"] or \
                 info["redo_contexts"] < 1:
@@ -1408,7 +1544,7 @@ def mesh_phase(path: dict, device) -> dict:
         f"{info0['device']} ({info0['backend']}), rows {[i['rows'] for i, _ in ranks]}"
         f" of {R} read from disk; launch {wall:.1f} s (references "
         f"{t_ref:.1f} s before it); launches by rank "
-        f"{[{t: i[n][t] for n, t in (('k1', 'K1'), ('k2', 'K2'))} for i, _ in ranks]}")
+        f"{[{n: {t: i[n][t] for t in ('K1', 'K2', 'P2')} for n in ('k1', 'k2')} for i, _ in ranks]}")
     for name, label, single in (("k1", f"predict_and_smile B=1, k={K}",
                                  path["e2e_warm_s"]),
                                 ("k2", f"predict B=64, k={K}",
@@ -1430,8 +1566,8 @@ def mesh_phase(path: dict, device) -> dict:
         f" s, {info0['syn']['steps'][0]} seed-steps")
     log(f"  checks: ranks agree; {'; '.join(checks)}; task_split = "
         f"({MESH_RANKS}, rank)")
-    return {t: sum(i[n][t] for i, _ in ranks)
-            for n, t in (("k1", "K1"), ("k2", "K2"))}
+    return {t: sum(i[n][t] for i, _ in ranks for n in ("k1", "k2"))
+            for t in ("K1", "K2", "P2")}
 
 
 # --------------------------------------------------------------------------
@@ -1511,6 +1647,7 @@ def reference_cell(device, card: str) -> None:
         (pred, std), first, warm = first_and_warm(
             lambda: eng.predict(ctx, k=K_REF, to_predict=to_predict, eta=0.1))
     ran.require("K1", "the reference's predict")
+    ran.require("P2", "the reference's predict")
     metrics = dict(eng.last_metrics)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if (metrics["method"] != "kernel" or ran.counts["K2"]
@@ -1627,7 +1764,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     _build.build(verbose=True)
-    log(f"phase 2 build: both kernels in {time.perf_counter() - t0:.1f} s "
+    log(f"phase 2 build: the kernels in {time.perf_counter() - t0:.1f} s "
         f"({_build.library_path().parent.name})")
 
     t0 = time.perf_counter()
@@ -1640,6 +1777,8 @@ def main() -> int:
     y = torch.from_numpy(dataset).to(device)
     log("phase 3 kernel vs plain (median of 5 device times):")
     res = kernels_vs_plain(y, device)
+    log("phase 3b pass-2 rescore kernel vs plain (median of 5 device times):")
+    rescore = rescore_vs_plain(y, device)
     del y
     torch.cuda.empty_cache()
 
@@ -1664,9 +1803,11 @@ def main() -> int:
     figures(device)
     reference_cell(device, card)
     shard_reader(device)
-    launches = {n: path[n] + Launches.totals[n] + mesh[n] for n in ("K1", "K2")}
+    launches = {n: path[n] + Launches.totals[n] + mesh[n]
+                for n in ("K1", "K2", "P2")}
     log(f"launches over every path: {launches} (phases 4-6 {path['K1']} K1, "
-        f"{path['K2']} K2; phases 7-14 and 16-17 {Launches.totals}; phase 15 {mesh})")
+        f"{path['K2']} K2, {path['P2']} P2; phases 7-14 and 16-17 "
+        f"{Launches.totals}; phase 15 {mesh})")
     kernels = []
     for name, tag, source, replaces in (
             ("blockmin_toeplitz", "K1",
@@ -1683,6 +1824,13 @@ def main() -> int:
                                     "bound_ms", "bound_by")},
             "library_ms": None, "library": LIBRARY,
             "shapes": res["shapes"][tag], "sweep": res["sweep"][tag]})
+    kernels.append({
+        "name": "rescore_candidates", "route": "cuda",
+        "source": "shadowing_tpu_torch/csrc/rescore_candidates.cu",
+        "replaces": None, "launches": launches["P2"],
+        **{k: rescore[1][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                      "bound_ms", "bound_by")},
+        "library_ms": None, "library": LIBRARY, "shapes": rescore})
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

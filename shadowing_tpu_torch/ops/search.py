@@ -11,11 +11,14 @@ Port of :mod:`shadowing_tpu.ops.pallas_search`.
   PyTorch version (``conv1d`` plus the min-fold). There is no fallback
   between the two.
 * **Pass 2** (:func:`pass2_from_bmin`): select the ``cap`` best blocks per
-  context, rescore their windows exactly in fp32 from the raw data, take the
-  exact k smallest (lower flat id first on ties) and certify the result
-  against the best unselected block with a self-calibrated guard band. Both
-  selections go through the certified tournament of
-  :mod:`shadowing_tpu_torch.ops.topk`, whose flags join pass 2's own.
+  context, rescore their windows exactly in fp32 from the raw data
+  (:func:`rescore_candidates`: on a CUDA tensor the hand-written kernel
+  ``csrc/rescore_candidates.cu``, one launch; on a CPU tensor its plain
+  version, one ``addcmul_`` per tap), take the exact k smallest (lower flat
+  id first on ties) and certify the result against the best unselected
+  block with a self-calibrated guard band. Both selections go through the
+  certified tournament of :mod:`shadowing_tpu_torch.ops.topk`, whose flags
+  join pass 2's own.
 
 Flat ids are ``traj * n_out + t`` in int64; blocks use the r-major id
 ``r * nblk + j`` for both pass-1 kernels.
@@ -45,19 +48,23 @@ _P, _NST, _STAGES = 8, 256 * 8, 3
 
 TOEPLITZ = Kernel("blockmin_toeplitz", [ctypes.c_void_p] * 4
                   + [ctypes.c_int] * 8)
+RESCORE = Kernel("rescore_candidates", [ctypes.c_void_p] * 7
+                 + [ctypes.c_int] * 6)
 
 
 def n_blocks(n_out: int) -> int:
     return -(-n_out // L)
 
 
-def check_tensor(t: torch.Tensor, name: str, ndim: int, device) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor of rank ``ndim``
+def check_tensor(t: torch.Tensor, name: str, ndim: int, device,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of rank ``ndim``
     on ``device`` — what the kernels' raw pointers assume."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32 or t.ndim != ndim or not t.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous float32 {ndim}-d tensor, "
+    if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
+        kind = str(dtype).removeprefix("torch.")
+        raise ValueError(f"{name} must be a contiguous {kind} {ndim}-d tensor, "
                          f"got {t.dtype} {tuple(t.shape)} "
                          f"contiguous={t.is_contiguous()}")
     if t.device != device:
@@ -174,9 +181,10 @@ def score_blockmin(y: torch.Tensor, norms: torch.Tensor,
 def _candidate_cross(y: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
                      j: torch.Tensor) -> torch.Tensor:
     """Exact fp32 cross terms ``(B, cap, L)`` of every window start of the
-    selected blocks ``(r, j)``, accumulated tap by tap (channel-major, as the
-    kernel does): every window is summed in the same order wherever it
-    sits, so equal windows score bit-equal and ties stay ties."""
+    selected blocks ``(r, j)``, accumulated tap by tap (channel-major, as
+    ``csrc/rescore_candidates.cu`` does): every window is summed in the same
+    order wherever it sits, so equal windows score bit-equal and ties stay
+    ties."""
     B, C, w = g.shape
     T = y.shape[2]
     ch = torch.arange(C, device=y.device)
@@ -190,6 +198,70 @@ def _candidate_cross(y: torch.Tensor, g: torch.Tensor, r: torch.Tensor,
         for s in range(w):
             acc.addcmul_(seg[:, :, c, s : s + L], g[:, c, s, None, None])
     return acc
+
+
+def rescore_candidates_plain(y: torch.Tensor, norms: torch.Tensor,
+                             g: torch.Tensor, r: torch.Tensor,
+                             j: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch rescore: :func:`_candidate_cross`, then the norms with
+    the ``1e30`` sentinel and the block minima."""
+    n_out = norms.shape[1]
+    cross = _candidate_cross(y, g, r, j)                          # (B, cap, L)
+    t = j[..., None] * L + torch.arange(L, device=y.device)       # (B, cap, L)
+    nsel = norms[r[..., None], t.clamp(max=n_out - 1)]
+    # padded starts and barred rows become a huge finite loser, so the
+    # arithmetic after pass 2 stays NaN-free
+    nsel = torch.where((t < n_out) & torch.isfinite(nsel), nsel,
+                       torch.tensor(1e30, device=y.device))
+    s = nsel - 2.0 * cross
+    return s, s.amin(dim=2)
+
+
+def rescore_candidates(y: torch.Tensor, norms: torch.Tensor, g: torch.Tensor,
+                       r: torch.Tensor, j: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact scores ``s (B, cap, L)`` of every window start of the selected
+    blocks, ``norms - 2 * cross`` with ``1e30`` at padded starts and barred
+    rows, and their minima ``exact_bmin (B, cap)``.
+
+    :param y: ``(R, C, T)`` trajectories
+    :param norms: ``(R, n_out)`` window norms (``+inf`` bars a row)
+    :param g: ``(B, C, w)`` combined context filters
+    :param r: ``(B, cap)`` int64 trajectory row of each selected block
+    :param j: ``(B, cap)`` int64 block of each in its row
+    """
+    check_tensor(y, "y", 3, y.device)
+    check_tensor(norms, "norms", 2, y.device)
+    check_tensor(g, "g", 3, y.device)
+    check_tensor(r, "r", 2, y.device, torch.int64)
+    check_tensor(j, "j", 2, y.device, torch.int64)
+    R, C, T = y.shape
+    B, Cg, w = g.shape
+    n_out = norms.shape[1]
+    if (Cg != C or norms.shape[0] != R or n_out > T - w + 1
+            or r.shape != j.shape or r.shape[0] != B):
+        raise ValueError(f"shape mismatch: y {tuple(y.shape)}, norms "
+                         f"{tuple(norms.shape)}, g {tuple(g.shape)}, r "
+                         f"{tuple(r.shape)}, j {tuple(j.shape)}")
+    if y.device.type == "cpu":
+        return rescore_candidates_plain(y, norms, g, r, j)
+    if y.device.type != "cuda":
+        raise ValueError(f"no rescore_candidates kernel for device {y.device}")
+    cap = r.shape[1]
+    s = torch.empty((B, cap, L), dtype=torch.float32, device=y.device)
+    exact_bmin = torch.empty((B, cap), dtype=torch.float32, device=y.device)
+    RESCORE.launch(ptr(y), ptr(norms), ptr(g), ptr(r), ptr(j), ptr(s),
+                   ptr(exact_bmin), C, T, n_out, B, cap, w)
+    return s, exact_bmin
+
+
+def winner_ids(r: torch.Tensor, j: torch.Tensor, loc: torch.Tensor,
+               n_out: int) -> torch.Tensor:
+    """Flat ids ``traj * n_out + t`` of the winners at ``loc (B, k)`` in the
+    ``(B, cap * L)`` candidate scores: start ``loc % L`` of selected block
+    ``loc // L``."""
+    return (r * n_out + j * L).gather(1, loc // L) + loc % L
 
 
 def pass2_from_bmin(
@@ -228,16 +300,7 @@ def pass2_from_bmin(
         j = bidx % nblk
 
     with span("psmc.pass2.rescore"):
-        cross = _candidate_cross(y, g, r, j)                      # (B, cap, L)
-        t = j[..., None] * L + torch.arange(L, device=y.device)   # (B, cap, L)
-        valid = t < n_out
-        nsel = norms[r[..., None], t.clamp(max=n_out - 1)]
-        # padded starts and barred rows become a huge finite loser, so the
-        # arithmetic below stays NaN-free
-        nsel = torch.where(valid & torch.isfinite(nsel), nsel,
-                           torch.tensor(1e30, device=y.device))
-        s = nsel - 2.0 * cross
-        flat = r[..., None] * n_out + t                           # (B, cap, L)
+        s, exact_bmin = rescore_candidates(y, norms, g, r, j)     # (B, cap, L)
 
     with span("psmc.pass2.final"):
         # final exact selection — the tournament again; the k winners
@@ -245,12 +308,11 @@ def pass2_from_bmin(
         # certified-safe
         vals, loc, fin_ok = topk_min_batched(s.reshape(B, cap * L), k, block=L,
                                              cap=k + 128)
-        idx = torch.gather(flat.reshape(B, cap * L), 1, loc)
+        idx = winner_ids(r, j, loc, n_out)
 
         # self-calibrated guard: the selected blocks' |pass-1 min - exact
         # min| samples the pass-1 error of the unselected ones; 2x its
         # per-context max plus the 1e-5 floor bounds it
-        exact_bmin = s.amin(dim=2)
         err_obs = torch.where(
             torch.isfinite(mu_sorted) & (exact_bmin < 1e29),
             (mu_sorted - exact_bmin).abs(),

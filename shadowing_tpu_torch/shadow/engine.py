@@ -568,13 +568,6 @@ class PathShadowing:
             esc_cap = max(k + 4 * 384, 2 * (cap or 0))
 
             def escalate():
-                if self._E is not None and k >= 4096:
-                    # pass-2 temporaries at the escalated cap are GB-scale
-                    # at large k: give the retry E's memory (rebuilt lazily)
-                    self._E = None
-                    count("e_evictions")
-                    self._log_route("redo: evicted factored E cache for the "
-                                    "escalated retry")
                 if tournament_cap is None:
                     self._cap_memo[(B, k)] = esc_cap
                 return psh.sharded_two_pass_search(y, norms, g, k, mesh,

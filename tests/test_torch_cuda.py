@@ -1,6 +1,6 @@
-"""The two hand-written CUDA kernels against their plain PyTorch versions,
-on the card, and the paths that run them there (the search routes, the
-synthesis, a mesh of ``torchrun`` ranks).
+"""The hand-written CUDA kernels (pass 1's two, pass 2's rescore) against
+their plain PyTorch versions, on the card, and the paths that run them
+there (the search routes, the synthesis, a mesh of ``torchrun`` ranks).
 
 These tests need an NVIDIA GPU with ``nvcc``; without one they skip. The
 module imports neither JAX nor the JAX package, so it also runs where JAX is
@@ -276,6 +276,107 @@ def test_generators_are_deterministic_per_seed(cuda):
     assert x1.shape == (256, 126) and (x1[:, 0] == 100.0).all() and (x1 > 0).all()
 
 
+# ---- pass 2's rescore ------------------------------------------------------
+
+def rescore_problem(cuda, R, C, T, w, n_out, B, cap, seed=0):
+    """A problem and ``cap`` sorted random blocks per context, as ``(r, j)``;
+    rows 0 and R - 1 barred."""
+    y, norms, g = problem(cuda, R, C, T, w, n_out, B, seed=seed)
+    norms[[0, R - 1]] = float("inf")
+    nblk = -(-n_out // 128)
+    rng = np.random.default_rng(seed)
+    bidx = np.sort(np.stack([rng.choice(R * nblk, cap, replace=False)
+                             for _ in range(B)]), axis=1)
+    bidx = torch.from_numpy(bidx).to(cuda)
+    return y, norms, g, bidx // nblk, bidx % nblk
+
+
+def check_rescore(got, want):
+    """The same 1e30 sentinels (padded starts, barred rows), no NaN, the
+    other scores within 1e-5 of their largest |score|, and ``exact_bmin``
+    the exact minimum of the kernel's own scores."""
+    (s, bmin), (s_want, _) = got, want
+    torch.cuda.synchronize()
+    assert not torch.isnan(s).any()
+    assert torch.equal(bmin, s.amin(2))
+    big = s_want >= 1e29
+    assert torch.equal(big, s >= 1e29) and torch.equal(s[big], s_want[big])
+    scale = s_want[~big].abs().max()
+    assert ((s - s_want)[~big].abs().max() <= 1e-5 * scale).item()
+
+
+@pytest.mark.parametrize("R,w,B,cap", [
+    (64, 20, 64, 1408),             # the k = 1,024 backtest's pass 2
+    (600, 20, 64, 16768),           # k = 16,384, rows cut to 600
+    (400, 126, 1, 10384),           # the Foveal-126 query at k = 10,000
+])
+def test_rescore_kernel_at_the_cells_shapes(cuda, R, w, B, cap):
+    T = 4096
+    args = rescore_problem(cuda, R, 1, T, w, T - w + 1, B, cap, seed=w)
+    before = search.RESCORE.launches
+    got = search.rescore_candidates(*args)
+    assert search.RESCORE.launches == before + 1
+    check_rescore(got, search.rescore_candidates_plain(*args))
+
+
+@pytest.mark.parametrize("R,C,T,w,n_out,B,cap", [
+    (40, 3, 1000, 20, 981, 5, 320),     # C > 1; every block, the last ones
+                                        # clamp at T - 1
+    (30, 1, 1200, 385, 816, 2, 210),    # w = MAX_WIDTH, every block
+    (50, 2, 1001, 33, 969, 3, 400),     # T % 4 != 0: 4-byte copies
+    (64, 1, 4096, 126, 3901, 1, 1984),  # n_out short of T - w + 1
+    (12, 16, 900, 385, 500, 2, 48),     # 16 channels of the widest filter
+    (6, 200, 700, 385, 300, 3, 18),     # 200 such channels: the taps are
+                                        # read from g, not staged
+    (20, 1, 600, 20, 581, 1500, 5),     # more blocks than one wave
+])
+def test_rescore_kernel_edges(cuda, R, C, T, w, n_out, B, cap):
+    args = rescore_problem(cuda, R, C, T, w, n_out, B, cap, seed=C + w)
+    check_rescore(search.rescore_candidates(*args),
+                  search.rescore_candidates_plain(*args))
+
+
+def test_rescore_kernel_duplicate_windows_score_bit_equal(cuda):
+    """Row 5 is row 2 shifted by 3 blocks and 37 starts: every window of row
+    2 recurs there in another lane and register, and scores bit-equal."""
+    R, T, w, d = 8, 2000, 20, 3 * 128 + 37
+    n_out = T - w + 1
+    y, norms, g = problem(cuda, R, 1, T, w, n_out, 3)
+    y[5, :, d:] = y[2, :, : T - d]
+    norms[5, d:] = norms[2, : n_out - d]
+    nblk = -(-n_out // 128)
+    blocks = torch.arange(nblk, device=cuda)
+    r = torch.cat([torch.full((nblk,), 2), torch.full((nblk,), 5)]
+                  ).to(cuda).expand(3, -1).contiguous()
+    j = torch.cat([blocks, blocks]).expand(3, -1).contiguous()
+    s, _ = search.rescore_candidates(y, norms, g, r, j)
+    rows = s.reshape(3, 2, nblk * 128)
+    assert torch.equal(rows[:, 0, : n_out - d], rows[:, 1, d:n_out])
+
+
+def test_pass2_launches_the_rescore_once_a_call(cuda):
+    y, norms, g = problem(cuda, 300, 1, 700, 20, 600, 4)
+    bmin = search.score_blockmin(y, norms, g)
+    for k, cap in ((10, None), (300, None), (2000, None), (300, 4000)):
+        before = search.RESCORE.launches
+        search.pass2_from_bmin(bmin, y, norms, g, k, cap)
+        assert search.RESCORE.launches == before + 1
+
+
+def test_two_pass_on_the_card_equals_the_cpu(cuda):
+    """No near-ties among the k + 1 best (gaps above 1e-5 relative on the
+    CPU), so the ids and flags are equal."""
+    k = 64
+    y, norms, g = problem("cpu", 64, 1, 700, 20, 681, 3, seed=3)
+    v, i, ok = search.two_pass_search(y, norms, g, k + 1)
+    gap = (v[:, 1:] - v[:, :-1]) / v[:, 1:].abs().clamp(min=1e-3)
+    assert ok.all() and gap.min() > 1e-5
+    v_c, i_c, ok_c = search.two_pass_search(y.to(cuda), norms.to(cuda),
+                                            g.to(cuda), k)
+    assert torch.equal(ok_c.cpu(), ok) and torch.equal(i_c.cpu(), i[:, :k])
+    torch.testing.assert_close(v_c.cpu(), v[:, :k], rtol=1e-5, atol=1e-6)
+
+
 def test_wrappers_raise_instead_of_falling_back(cuda):
     y, norms, g = problem(cuda, 8, 1, 300, 20, 200, 1)
     with pytest.raises(ValueError, match="is on cpu"):
@@ -286,6 +387,9 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
         search.score_blockmin(torch.zeros((2, 1, 12100), device=cuda),
                               torch.zeros((2, 10), device=cuda),
                               torch.zeros((1, 1, 12000), device=cuda))
+    r = torch.zeros((1, 4), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="is on cpu"):
+        search.rescore_candidates(y, norms, g, r, r.cpu())
     E = torch.zeros((8, 49, 256), device=cuda)
     with pytest.raises(ValueError, match="MAX_DIM"):
         factored.score_blockmin_factored(E, norms[:, :256].contiguous(),

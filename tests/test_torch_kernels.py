@@ -164,6 +164,97 @@ def test_e_bytes():
     assert factored.e_bytes(32768, 4057, 20) == 32768 * 20 * 32 * 128 * 4
 
 
+# ---- pass 2's rescore (plain version) and the winners' ids ----------------
+
+def selection(rng, B, cap, R, nblk):
+    """Sorted block ids ``(B, cap)`` of each context, split into (r, j)."""
+    bidx = np.sort(np.stack([rng.choice(R * nblk, cap, replace=False)
+                             for _ in range(B)]), axis=1)
+    return t(bidx // nblk), t(bidx % nblk)
+
+
+@pytest.mark.parametrize("R,C,T,w,B,cap", [
+    (12, 1, 400, 20, 3, 20),       # n_out = 381: the last block is ragged
+    (9, 2, 333, 33, 2, 17),        # two channels, segments clamp at T - 1
+    (6, 1, 700, 130, 1, 30),       # a filter over 2 blocks
+    (5, 1, 600, 126, 1, 12),       # the Foveal-126 width
+    (4, 1, 900, 385, 1, 10),       # w = MAX_WIDTH
+    (4, 16, 800, 385, 2, 5),       # 16 channels of the widest filter
+    (7, 1, 257, 20, 4, 8),         # T % 4 != 0
+    (6, 3, 500, 7, 2, 14),         # w % 4 != 0, three channels
+    (5, 1, 148, 20, 3, 5),         # one block a row, 1 valid start in 128
+    (8, 5, 421, 64, 2, 16),        # w a multiple of 4, five channels
+    (3, 1, 1000, 1, 2, 9),         # a single tap
+])
+def test_rescore_plain_sentinels_and_block_minima(R, C, T, w, B, cap):
+    """Padded starts and barred rows score exactly 1e30, valid starts
+    ``norm - 2 * cross`` (float64 reference), and ``exact_bmin`` is
+    ``s.amin(2)``."""
+    y, norms, g, n_out = make_problem(R + C + w, R, T, w, B, C=C)
+    norms[[1, R - 2]] = np.inf
+    nblk = -(-n_out // L)
+    rng = np.random.default_rng(w)
+    r, j = selection(rng, B, cap, R, nblk)
+    s, exact_bmin = search.rescore_candidates(t(y), t(norms), t(g), r, j)
+    assert s.shape == (B, cap, L) and exact_bmin.shape == (B, cap)
+    assert torch.equal(exact_bmin, s.amin(2))
+    start = j[..., None] * L + torch.arange(L)
+    barred = (start >= n_out) | torch.isin(r, torch.tensor([1, R - 2]))[..., None]
+    assert barred.any() and (~barred).any()
+    assert (s[barred] == torch.tensor(1e30)).all()
+    y64, g64 = y.astype(np.float64), g.astype(np.float64)
+    for b, i, l in zip(*np.nonzero(~barred.numpy())):
+        rr, tt = int(r[b, i]), int(start[b, i, l])
+        want = norms[rr, tt] - 2 * (y64[rr, :, tt : tt + w] * g64[b]).sum()
+        assert abs(float(s[b, i, l]) - want) <= 1e-5 * max(abs(want), 1.0)
+
+
+@pytest.mark.parametrize("R,n_out,cap,k", [
+    (5, 381, 12, 40),              # ragged n_out, 3 blocks a row
+    (3, 200, 6, 300),              # every block selected
+    (40, 4077, 200, 1000),         # the backtest's n_out
+])
+def test_winner_ids_equal_the_flat_gather(R, n_out, cap, k):
+    """The ids made from ``loc``, ``r`` and ``j`` equal a gather from the
+    ``(B, cap, L)`` tensor of every candidate's flat id, on selections that
+    repeat rows."""
+    rng = np.random.default_rng(n_out)
+    B, nblk = 4, -(-n_out // L)
+    r, j = selection(rng, B, cap, R, nblk)
+    assert (r[:, 1:] == r[:, :-1]).any()
+    loc = t(np.sort(rng.choice(cap * L, (B, k)), axis=1))
+    flat = r[..., None] * n_out + j[..., None] * L + torch.arange(L)
+    want = torch.gather(flat.reshape(B, cap * L), 1, loc)
+    got = search.winner_ids(r, j, loc, n_out)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bad", ["y float64", "r int32", "y strided",
+                                 "j strided", "meta device"])
+def test_rescore_wrapper_checks_inputs(bad):
+    """Wrong dtypes and non-contiguous inputs raise; a tensor neither on the
+    CPU nor on a CUDA card gets no plain version."""
+    y, norms, g, n_out = make_problem(2, 6, 300, 20, 2)
+    args = dict(y=t(y), norms=t(norms), g=t(g),
+                r=torch.zeros((2, 4), dtype=torch.int64),
+                j=torch.ones((2, 4), dtype=torch.int64))
+    if bad == "y float64":
+        args["y"] = args["y"].double()
+    elif bad == "r int32":
+        args["r"] = args["r"].int()
+    elif bad == "y strided":
+        args["y"] = args["y"].transpose(0, 2).contiguous().transpose(0, 2)
+    elif bad == "j strided":
+        args["j"] = torch.ones((4, 2), dtype=torch.int64).T
+    else:
+        args = {n: torch.empty(a.shape, dtype=a.dtype, device="meta")
+                for n, a in args.items()}
+    match = ("no rescore_candidates kernel" if bad == "meta device"
+             else "must be a contiguous")
+    with pytest.raises(ValueError, match=match):
+        search.rescore_candidates(**args)
+
+
 # ---- launch plans of the CUDA kernels (pure Python, mirrored in csrc/) ----
 
 SMEM_BLOCK = 227 * 1024    # shared memory one block may use on an H100
