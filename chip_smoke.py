@@ -5,9 +5,9 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card::
 
     python3 chip_smoke.py
 
-It builds both pass-1 kernels and pass 2's rescore kernel from
-``shadowing_tpu_torch/csrc`` with ``nvcc``, holds each against its plain
-PyTorch version on the card, then
+It builds both pass-1 kernels, pass 2's rescore kernel and the Hedged-MC
+smile's kernel from ``shadowing_tpu_torch/csrc`` with ``nvcc``, holds each
+against its plain PyTorch version on the card, then
 drives the main path at the README workflow scale (32,768 trajectories x
 4,096 days, ``Identity(20)``, ``RelativeMSE``, horizon 20, k = 1,024):
 
@@ -20,7 +20,10 @@ drives the main path at the README workflow scale (32,768 trajectories x
    both kernels over B = 1 .. 64 at w = d = 20; 3b. pass 2's rescore
    kernel at the benchmark cells' (B, w, cap) = (64, 20, 1,408), (64, 20,
    16,768) and (1, 126, 10,384), with its time, the plain version's and
-   its bound (bytes);
+   its bound (bytes); 3c. the Hedged-MC smile's kernel at the main path's
+   shapes (one context of 1,024 winners, Ts = [5, 10, 20], 9 strikes, 12
+   hats) under weights on a few paths and spread ones, with its time, the
+   plain version's and its bound;
 4. one context: ``predict_and_smile`` on the last 20 daily returns of the
    bundled S&P-like series, checked against the on-card direct oracle;
 5. 64 contexts: ``predict`` through the factored kernel, checked against
@@ -69,7 +72,8 @@ drives the main path at the README workflow scale (32,768 trajectories x
     directory, phase 15's dataset file, and that file cut into 8 shards.
 
 Every check raises on failure. The line before the last is a JSON object
-of the kernels: launch counts summed over every path, and per shape the
+of the kernels (K1, K2, P2 and HM, the smile's): launch counts summed over
+every path, and per shape the
 error, the times and the bound;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
 the script exits non-zero and prints no result.
@@ -99,6 +103,10 @@ SWEEP_B = (1, 2, 4, 8, 16, 32, 64)  # phase 3: contexts per call, w = d = 20
 #: phase 3b: pass 2's rescore at the benchmark cells' (B, w, cap): the
 #: backtest at k = 1,024 and 16,384, the Foveal-126 query at k = 10,000
 RESCORE_SHAPES = ((64, 20, 1408), (64, 20, 16768), (1, 126, 10384))
+#: phase 3c: the smile's kernel at the main path's (B, N, nK, m): prices
+#: within SMILE_TOL of the spot of the plain float64 version's (the kernel
+#: sums the normal equations in another order)
+SMILE_SHAPE, SMILE_TOL = (1, K, len(MS), 12), 1e-9
 LIBRARY = ("none: no one PyTorch call folds the minimum over each 128-start "
            "block into norms - 2 * cross")
 #: tests/test_fuzz.py's float32 tie window: ids may differ only between
@@ -448,6 +456,84 @@ def rescore_vs_plain(y, device) -> list:
     return res
 
 
+def smile_vs_plain(device) -> list:
+    """Phase 3c: the Hedged-MC smile's kernel (``ops/smile.py``) against
+    its plain version (``_backward`` per maturity, then
+    ``bs_implied_vol``) on the same CUDA tensors at ``SMILE_SHAPE``: price
+    paths of t(4) returns near 100, weights on a few paths (Softmax at eta
+    0.075 of the main path) or spread over all, strikes over ``MS``. Prices
+    within ``SMILE_TOL`` of the spot, vols bit-equal where the prices round
+    to the same float32; the kernel's device time (profiler) and the plain
+    version's (events: it is host-bound) beside the bound of
+    ``benchmark/work_smile.py``."""
+    import math
+
+    import torch
+
+    from benchmark import work_smile
+    from shadowing_tpu_torch.ops import smile
+    from shadowing_tpu_torch.pricing import black_scholes, hedged_mc
+
+    B, N, nK, m = SMILE_SHAPE
+    rng = np.random.default_rng(7)
+    res = []
+    for label, spread in (("few paths", 300.0), ("spread", 0.5)):
+        ret = rng.standard_t(4, size=(B, N, max(TS))) * 0.0126 / np.sqrt(2)
+        x = 100.0 * np.exp(np.concatenate(
+            [np.zeros((B, N, 1)), np.cumsum(ret, axis=-1)], axis=-1))
+        z = -rng.uniform(0.0, spread, size=(B, N))
+        z[:, :2] = 0.0
+        w = np.exp(z) / np.exp(z).sum(axis=1, keepdims=True)
+        strikes = 100.0 * np.exp(MS[None, None] * 0.2 * np.sqrt(
+            np.asarray(TS) / 252)[None, :, None]).repeat(B, 0)
+        paths = torch.as_tensor(x, dtype=torch.float64, device=device)
+        wt = torch.as_tensor(w, dtype=torch.float32, device=device)
+        K_ = torch.as_tensor(strikes, dtype=torch.float64, device=device)
+        knots = hedged_mc._regression_knots(paths, m)
+        kernel_fn = lambda: smile.hedged_mc_smile(paths, wt, K_, knots, TS,
+                                                  1.0, 0.0)
+
+        def plain_fn():
+            prices = torch.stack([hedged_mc._backward(
+                paths[..., : T + 1], wt, K_[:, i], 1.0, knots, m)
+                for i, T in enumerate(TS)], 1)
+            vols = torch.stack([black_scholes.bs_implied_vol(
+                prices[:, i], paths[:, 0, 0, None], K_[:, i], T * (1.0 / 252),
+                0.0)
+                for i, T in enumerate(TS)], 1)
+            return prices, vols
+
+        (prices, vols), (p_want, v_want) = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        err = float((prices - p_want).abs().max())
+        alike = prices.float() == p_want.float()
+        fin = alike & ~v_want.isnan()
+        n_eff = 1.0 / float((wt.double() ** 2).sum())
+        shape = (f"hedged_mc_smile B={B} N={N} Ts={TS} nK={nK} m={m}, "
+                 f"{label} (1/sum w^2 {n_eff:.2f})")
+        if (math.isnan(err) or err > SMILE_TOL * 100.0
+                or not torch.equal(vols.isnan(), v_want.isnan())
+                or not torch.equal(vols[fin], v_want[fin])):
+            raise AssertionError(f"{shape}: kernel disagrees with its plain "
+                                 f"version (price error {err:.3e})")
+        nbytes, flop = work_smile.smile(B, N, max(TS), TS, nK, m)
+        ms = kernel_device_ms(kernel_fn, "hedged_mc_smile")
+        bound_s, by = work_smile.bound_seconds(nbytes, flop)
+        entry = {"shape": shape, "ms": ms, "event_ms": median_ms(kernel_fn),
+                 "bound_ms": 1e3 * bound_s, "bound_by": by,
+                 "share": 1e3 * bound_s / ms, "max_abs_err": err,
+                 "vols_bit_equal": int(fin.sum()),
+                 "plain_ms": median_ms(plain_fn)}
+        log(f"  {shape}: max |price - plain| {err:.3e} (limit "
+            f"{SMILE_TOL * 100.0:.0e}), vols bit-equal at "
+            f"{entry['vols_bit_equal']}/{vols.numel()} (NaN alike); kernel "
+            f"{ms:.4f} ms (events {entry['event_ms']:.4f} ms), plain "
+            f"{entry['plain_ms']:.3f} ms, bound {entry['bound_ms']:.2e} ms "
+            f"({by}), {100 * entry['share']:.4f} % of the bound")
+        res.append(entry)
+    return res
+
+
 def main_path(dataset, device) -> dict:
     """Phases 4-6 through the public API."""
     import torch
@@ -462,6 +548,7 @@ def main_path(dataset, device) -> dict:
     )
     from shadowing_tpu_torch.ops.factored import FACTORED
     from shadowing_tpu_torch.ops.search import RESCORE, TOEPLITZ
+    from shadowing_tpu_torch.ops.smile import SMILE
     from shadowing_tpu_torch.pricing.black_scholes import (
         SIGMA_HI,
         SIGMA_LO,
@@ -481,19 +568,22 @@ def main_path(dataset, device) -> dict:
 
     # ---- phase 4: one context -------------------------------------------
     TOEPLITZ.launches = FACTORED.launches = RESCORE.launches = 0
+    SMILE.launches = 0
     t0 = time.perf_counter()
     vars_, _, smiles = e2e()
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     warm = median_wall(e2e)
     k1_launches, p2_launches = TOEPLITZ.launches, RESCORE.launches
+    hm_launches = SMILE.launches
     log(f"phase 4 predict_and_smile (B=1, k={K}): first call {first:.3f} s, "
         f"warm median of 5 {warm:.4f} s; K1 launches {k1_launches}, P2 "
-        f"launches {p2_launches}, route {eng.last_metrics['method']}, "
-        f"contexts redone {eng.last_metrics['redo_contexts']}")
-    if k1_launches == 0 or p2_launches == 0:
-        raise AssertionError("the one-context main path never launched K1 "
-                             "or P2")
+        f"launches {p2_launches}, HM launches {hm_launches}, route "
+        f"{eng.last_metrics['method']}, contexts redone "
+        f"{eng.last_metrics['redo_contexts']}")
+    if k1_launches == 0 or p2_launches == 0 or hm_launches == 0:
+        raise AssertionError("the one-context main path never launched K1, "
+                             "P2 or HM")
 
     d, p, i = (a.cpu().numpy() for a in eng.shadow_device(ctx, k=K))
     if not (np.diff(d[0]) >= 0).all():
@@ -587,7 +677,7 @@ def main_path(dataset, device) -> dict:
         f"equal phase 4's, P2 launches {RESCORE.launches}; "
         f"{[s for s in eng.routing_log if s.startswith('redo')]}")
     return {"K1": k1_launches, "K2": k2_launches, "P2": p2_launches,
-            "e2e_warm_s": warm,
+            "HM": hm_launches, "e2e_warm_s": warm,
             "predict64_warm_s": warm64, "e_build_s": e_build,
             # what phase 15 is held to
             "ctx": ctx, "ctx64": ctx64, "ids": i, "pred64": pred,
@@ -635,16 +725,19 @@ def dataset_contexts(dataset, w: int, n: int, seed: int) -> np.ndarray:
 
 
 class Launches:
-    """K1/K2/P2 (pass 2's rescore) launch counts of one driven path: zeroed
-    on entry, read on exit, summed over every path into ``totals``."""
+    """K1/K2/P2 (pass 2's rescore)/HM (the smile's) launch counts of one
+    driven path: zeroed on entry, read on exit, summed over every path into
+    ``totals``."""
 
-    totals = {"K1": 0, "K2": 0, "P2": 0}
+    totals = {"K1": 0, "K2": 0, "P2": 0, "HM": 0}
 
     def __enter__(self):
         from shadowing_tpu_torch.ops.factored import FACTORED
         from shadowing_tpu_torch.ops.search import RESCORE, TOEPLITZ
+        from shadowing_tpu_torch.ops.smile import SMILE
 
-        self.kernels = {"K1": TOEPLITZ, "K2": FACTORED, "P2": RESCORE}
+        self.kernels = {"K1": TOEPLITZ, "K2": FACTORED, "P2": RESCORE,
+                        "HM": SMILE}
         for k in self.kernels.values():
             k.launches = 0
         return self
@@ -1211,6 +1304,7 @@ def scattering_search(data, device) -> None:
                                           eta_smile=0.075))
     ran.require("K1", "predict_and_smile on the generated dataset")
     ran.require("P2", "predict_and_smile on the generated dataset")
+    ran.require("HM", "predict_and_smile on the generated dataset")
     _, _, i = eng.shadow(ctx, k=K)
     _, _, i_dir = eng.shadow(ctx, k=K, method="direct")
     d0, _, i0 = eng.shadow(out[0, 0, :W].cpu().numpy(), k=4)
@@ -1364,6 +1458,7 @@ def mesh_worker(out: Path, device: str) -> None:
     from shadowing_tpu_torch.models.scattering.synthesis import synthesize_batch
     from shadowing_tpu_torch.ops.factored import FACTORED
     from shadowing_tpu_torch.ops.search import RESCORE, TOEPLITZ
+    from shadowing_tpu_torch.ops.smile import SMILE
     from shadowing_tpu_torch.parallel import (
         LAST_MERGE_PAYLOAD,
         data_mesh,
@@ -1391,10 +1486,11 @@ def mesh_worker(out: Path, device: str) -> None:
     def driven(name, fn):
         """The counts zeroed before one driven path and read after it."""
         TOEPLITZ.launches = FACTORED.launches = RESCORE.launches = 0
+        SMILE.launches = 0
         res, first, warm = first_and_warm(fn, 5)
         info[name] = {"first_s": first, "warm_s": warm,
                       "K1": TOEPLITZ.launches, "K2": FACTORED.launches,
-                      "P2": RESCORE.launches}
+                      "P2": RESCORE.launches, "HM": SMILE.launches}
         return res
 
     ctx, ctx64 = inp["ctx"], inp["ctx64"]
@@ -1505,8 +1601,8 @@ def mesh_phase(path: dict, device) -> dict:
                                      f"0 in {name}")
         if info["task_split"] != [MESH_RANKS, r]:
             raise AssertionError(f"rank {r}: task_split {info['task_split']}")
-        for tag, kernel in (("k1", "K1"), ("k1", "P2"), ("k2", "K2"),
-                            ("k2", "P2")):
+        for tag, kernel in (("k1", "K1"), ("k1", "P2"), ("k1", "HM"),
+                            ("k2", "K2"), ("k2", "P2")):
             if info[tag][kernel] == 0:
                 raise AssertionError(f"rank {r}: the mesh path {tag} never "
                                      f"launched {kernel}")
@@ -1544,7 +1640,7 @@ def mesh_phase(path: dict, device) -> dict:
         f"{info0['device']} ({info0['backend']}), rows {[i['rows'] for i, _ in ranks]}"
         f" of {R} read from disk; launch {wall:.1f} s (references "
         f"{t_ref:.1f} s before it); launches by rank "
-        f"{[{n: {t: i[n][t] for t in ('K1', 'K2', 'P2')} for n in ('k1', 'k2')} for i, _ in ranks]}")
+        f"{[{n: {t: i[n][t] for t in ('K1', 'K2', 'P2', 'HM')} for n in ('k1', 'k2')} for i, _ in ranks]}")
     for name, label, single in (("k1", f"predict_and_smile B=1, k={K}",
                                  path["e2e_warm_s"]),
                                 ("k2", f"predict B=64, k={K}",
@@ -1567,7 +1663,7 @@ def mesh_phase(path: dict, device) -> dict:
     log(f"  checks: ranks agree; {'; '.join(checks)}; task_split = "
         f"({MESH_RANKS}, rank)")
     return {t: sum(i[n][t] for i, _ in ranks for n in ("k1", "k2"))
-            for t in ("K1", "K2", "P2")}
+            for t in ("K1", "K2", "P2", "HM")}
 
 
 # --------------------------------------------------------------------------
@@ -1588,6 +1684,7 @@ def figures(device) -> None:
     with Launches() as ran:
         data = make_figures.compute(device.type)
     ran.require("K1", "make_figures")
+    ran.require("HM", "make_figures' conditional smile")
     t_compute = time.perf_counter() - t0
     d, paths, smile = data["distances"], data["close_paths"], data["smile"]
     proba = Softmax(d, eta=0.09)
@@ -1781,6 +1878,9 @@ def main() -> int:
     rescore = rescore_vs_plain(y, device)
     del y
     torch.cuda.empty_cache()
+    log("phase 3c Hedged-MC smile kernel vs plain (profiler device time; "
+        "events medians of 5):")
+    smile = smile_vs_plain(device)
 
     path = main_path(dataset, device)
     torch.cuda.empty_cache()
@@ -1804,10 +1904,10 @@ def main() -> int:
     reference_cell(device, card)
     shard_reader(device)
     launches = {n: path[n] + Launches.totals[n] + mesh[n]
-                for n in ("K1", "K2", "P2")}
+                for n in ("K1", "K2", "P2", "HM")}
     log(f"launches over every path: {launches} (phases 4-6 {path['K1']} K1, "
-        f"{path['K2']} K2, {path['P2']} P2; phases 7-14 and 16-17 "
-        f"{Launches.totals}; phase 15 {mesh})")
+        f"{path['K2']} K2, {path['P2']} P2, {path['HM']} HM; phases 7-14 and "
+        f"16-17 {Launches.totals}; phase 15 {mesh})")
     kernels = []
     for name, tag, source, replaces in (
             ("blockmin_toeplitz", "K1",
@@ -1831,6 +1931,14 @@ def main() -> int:
         **{k: rescore[1][k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by")},
         "library_ms": None, "library": LIBRARY, "shapes": rescore})
+    kernels.append({
+        "name": "hedged_mc_smile", "route": "cuda",
+        "source": "shadowing_tpu_torch/csrc/hedged_mc.cu",
+        "replaces": None, "launches": launches["HM"],
+        **{k: smile[0][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by")},
+        "library_ms": None, "library": "none: no one PyTorch call runs a "
+        "backward regression", "shapes": smile})
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

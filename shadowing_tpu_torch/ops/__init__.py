@@ -1,1 +1,2 @@
-"""Search operators: sliding dot, exact top-k, and the two pass-1 kernels."""
+"""Search operators: sliding dot, exact top-k, the two pass-1 kernels, pass
+2's rescore and the Hedged-MC smile's kernel."""

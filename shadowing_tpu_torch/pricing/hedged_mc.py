@@ -8,11 +8,16 @@ log-moneyness grid, optionally under a distance-weighted path measure.
 For each maturity the regression runs backwards over time; both the price
 and the hedge are expanded on a piecewise-linear hat basis over per-step
 knots, so each step is one ``(2m x 2m)`` weighted normal-equation solve
-against an ``(N x n_strikes)`` target block (unchecked, as in the JAX
+against an ``(N x n_strikes)`` target block, in float64 whatever the
+dtype of the paths (:func:`_backward` says why; unchecked, as in the JAX
 package: a singular system yields non-finite prices and NaN vols, not an
-error). Every function takes a leading
-batch axis of path sets (one per context) written out, and loops over time
-in Python.
+error). On a CPU tensor the induction loops over time in PyTorch; on the
+card one kernel (``ops/smile.py``, ``csrc/hedged_mc.cu``) runs the
+inductions and the Black-Scholes inversions of every context and maturity.
+The public functions take the paths in float32; the engine hands
+:func:`_smiles` float64 paths. A :class:`Smile`'s arrays are float32, its
+strikes float64. Every function takes a leading batch axis of path sets
+(one per context) written out.
 
 Strikes are ``K = S0 exp(M sigma_T sqrt(tau))`` with ``sigma_T`` the
 (weighted) RMS realized volatility of the paths to maturity ``T``.
@@ -26,10 +31,12 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from shadowing_tpu_torch.array_types import Array, as_numpy, fp32_exact
+from shadowing_tpu_torch.array_types import Array, as_numpy
+from shadowing_tpu_torch.ops import smile as smile_ops
 from shadowing_tpu_torch.pricing.black_scholes import bs_implied_vol
 from shadowing_tpu_torch.stats.proba import DiscreteProba
 from shadowing_tpu_torch.stats.realized import ANNUALIZATION
+from shadowing_tpu_torch.utils.profiling import count, span
 
 _RIDGE = 1e-9
 
@@ -67,6 +74,87 @@ def _quantile_linear(a: torch.Tensor, q: torch.Tensor, dim: int) -> torch.Tensor
     return srt[..., lo] * (1.0 - hw) + srt[..., hi] * hw       # (..., len(q))
 
 
+def _regression_knots(paths: torch.Tensor, n_basis: int,
+                      knots: str = "auto") -> Optional[torch.Tensor]:
+    """Per-step regression knots ``(B, T-1, m)`` float64 of the price paths
+    ``(B, N, T+1)`` at steps 1 .. T-1 (``None`` for ``T < 2``), all steps at
+    once: exact empirical quantiles for small path sets (the moment grid can
+    leave hat cells empty there), else the lognormal-moment approximation of
+    the same quantile grid (sort-free, exact in distribution for lognormal
+    steps). ``knots`` forces a branch: ``"empirical"`` or ``"moment"``."""
+    B, N, T1 = paths.shape
+    T = T1 - 1
+    if T < 2:
+        return None
+    paths = paths.to(torch.float64)
+    grid = torch.linspace(0.0, 1.0, n_basis, dtype=torch.float64,
+                          device=paths.device)
+    use_empirical = N < 2048 if knots == "auto" else knots == "empirical"
+    if use_empirical:
+        return _quantile_linear(paths[:, :, 1:T], grid, dim=1)  # (B, T-1, m)
+    ln_s = torch.log(torch.clamp(paths[:, :, 1:T], min=1e-30))  # (B, N, T-1)
+    mu_t = ln_s.mean(dim=1)
+    sig_t = torch.clamp(ln_s.std(dim=1, correction=0), min=1e-7)
+    eps = max(1.0 / (2 * N), 1e-6)
+    g = torch.special.ndtri(torch.clamp(grid, eps, 1.0 - eps))
+    return torch.exp(mu_t[..., None] + sig_t[..., None] * g)
+
+
+def _backward(
+    paths: torch.Tensor,     # (B, N, T+1) raw prices, common S0 per row
+    weights: torch.Tensor,   # (B, N) path measure, rows sum to 1
+    strikes: torch.Tensor,   # (B, nK)
+    discount: float,         # e^{-r dt}
+    knots_all: Optional[torch.Tensor],   # (B, >= T-1, m), _regression_knots
+    n_basis: int,
+) -> torch.Tensor:           # (B, nK) option prices at t=0, dtype of paths
+    """The backward induction of one maturity.
+
+    Every step's weighted normal equations are formed and solved in
+    float64, whatever the dtype of the inputs. Under a Softmax measure at a
+    small bandwidth the weights sit on one or two paths: the normal matrix
+    then has a few eigenvalues of order one and the rest at the ridge,
+    1e-9, below float32's rounding of the order-one entries (6e-8), so a
+    float32 solve returns prices that are off by up to several times the
+    spot. In float64 the ridge stands far above the rounding and the solve
+    gives the answer the ridge defines. A ridge scaled to the weights would
+    define another answer, so the ridge stays as it is."""
+    out_dtype = paths.dtype
+    paths, weights, strikes = (a.to(torch.float64)
+                               for a in (paths, weights, strikes))
+    B, N, T1 = paths.shape
+    T = T1 - 1
+    dev = paths.device
+    disc_t = torch.tensor(discount, dtype=torch.float64, device=dev) ** \
+        torch.arange(T1, device=dev)                           # (T+1,)
+    s_tilde = paths * disc_t                                   # discounted
+    payoff = torch.clamp(paths[:, :, -1, None] - strikes[:, None, :], min=0.0)
+    c_next = payoff * disc_t[-1]                               # (B, N, nK)
+    w_sqrt = torch.sqrt(weights)[:, :, None]                   # (B, N, 1)
+    eye = torch.eye(2 * n_basis, dtype=torch.float64, device=dev)
+    ramp = torch.arange(n_basis, dtype=torch.float64, device=dev) * 1e-6
+
+    # t = T-1 .. 1 (the t=0 step is degenerate: all S_0 equal)
+    for t in range(T - 1, 0, -1):
+        kn = knots_all[:, t - 1]                               # (B, m)
+        # strictly increasing knots (ties when sig_t ~ 0 near t=0)
+        kn = kn + ramp * (kn[:, -1:] - kn[:, :1] + 1.0)
+        ds = s_tilde[:, :, t + 1] - s_tilde[:, :, t]           # (B, N)
+        basis = _hat_basis(paths[:, :, t], kn)                 # (B, N, m)
+        Aw = torch.cat([basis, basis * ds[..., None]], dim=-1) * w_sqrt
+        gram = Aw.transpose(1, 2) @ Aw + _RIDGE * eye
+        rhs = Aw.transpose(1, 2) @ (c_next * w_sqrt)           # (B, 2m, nK)
+        coef = torch.linalg.solve_ex(gram, rhs).result
+        c_next = basis @ coef[:, :n_basis]                     # (B, N, nK)
+
+    # final step: scalar C_0 and scalar hedge phi_0
+    ds0 = s_tilde[:, :, 1] - s_tilde[:, :, 0]
+    A0w = torch.stack([torch.ones_like(ds0), ds0], dim=-1) * w_sqrt
+    gram0 = A0w.transpose(1, 2) @ A0w + _RIDGE * eye[:2, :2]
+    rhs0 = A0w.transpose(1, 2) @ (c_next * w_sqrt)
+    return torch.linalg.solve_ex(gram0, rhs0).result[:, 0].to(out_dtype)
+
+
 def _hmc_prices(
     paths: torch.Tensor,     # (B, N, T+1) raw prices, common S0 per row
     weights: torch.Tensor,   # (B, N) path measure, rows sum to 1
@@ -80,80 +168,47 @@ def _hmc_prices(
     if paths.ndim == 2:
         return _hmc_prices(paths[None], weights[None], strikes[None],
                            discount, n_basis, knots)[0]
-    B, N, T1 = paths.shape
-    T = T1 - 1
-    dev = paths.device
-    disc_t = torch.tensor(discount, dtype=torch.float32, device=dev) ** \
-        torch.arange(T1, device=dev)                           # (T+1,)
-    s_tilde = paths * disc_t                                   # discounted
-    payoff = torch.clamp(paths[:, :, -1, None] - strikes[:, None, :], min=0.0)
-    c_next = payoff * disc_t[-1]                               # (B, N, nK)
-
-    # per-step regression knots, all steps at once: exact empirical
-    # quantiles for small path sets (the moment grid can leave hat cells
-    # empty there), else the lognormal-moment approximation of the same
-    # quantile grid (sort-free, exact in distribution for lognormal steps)
-    use_empirical = N < 2048 if knots == "auto" else knots == "empirical"
-    grid = torch.linspace(0.0, 1.0, n_basis, device=dev)
-    if T < 2:
-        knots_all = None
-    elif use_empirical:
-        knots_all = _quantile_linear(paths[:, :, 1:T], grid, dim=1)  # (B, T-1, m)
-    else:
-        ln_s = torch.log(torch.clamp(paths[:, :, 1:T], min=1e-30))  # (B, N, T-1)
-        mu_t = ln_s.mean(dim=1)
-        sig_t = torch.clamp(ln_s.std(dim=1, correction=0), min=1e-7)
-        eps = max(1.0 / (2 * N), 1e-6)
-        g = torch.special.ndtri(torch.clamp(grid, eps, 1.0 - eps))
-        knots_all = torch.exp(mu_t[..., None] + sig_t[..., None] * g)
-    w_sqrt = torch.sqrt(weights)[:, :, None]                   # (B, N, 1)
-    eye = torch.eye(2 * n_basis, device=dev)
-    ramp = torch.arange(n_basis, device=dev) * 1e-6
-
-    with fp32_exact():
-        # t = T-1 .. 1 (the t=0 step is degenerate: all S_0 equal)
-        for t in range(T - 1, 0, -1):
-            kn = knots_all[:, t - 1]                           # (B, m)
-            # strictly increasing knots (ties when sig_t ~ 0 near t=0)
-            kn = kn + ramp * (kn[:, -1:] - kn[:, :1] + 1.0)
-            ds = s_tilde[:, :, t + 1] - s_tilde[:, :, t]       # (B, N)
-            basis = _hat_basis(paths[:, :, t], kn)             # (B, N, m)
-            Aw = torch.cat([basis, basis * ds[..., None]], dim=-1) * w_sqrt
-            gram = Aw.transpose(1, 2) @ Aw + _RIDGE * eye
-            rhs = Aw.transpose(1, 2) @ (c_next * w_sqrt)       # (B, 2m, nK)
-            coef = torch.linalg.solve_ex(gram, rhs).result
-            c_next = basis @ coef[:, :n_basis]                 # (B, N, nK)
-
-        # final step: scalar C_0 and scalar hedge phi_0
-        ds0 = s_tilde[:, :, 1] - s_tilde[:, :, 0]
-        A0w = torch.stack([torch.ones_like(ds0), ds0], dim=-1) * w_sqrt
-        gram0 = A0w.transpose(1, 2) @ A0w + _RIDGE * torch.eye(2, device=dev)
-        rhs0 = A0w.transpose(1, 2) @ (c_next * w_sqrt)
-        return torch.linalg.solve_ex(gram0, rhs0).result[:, 0]  # (B, nK)
+    return _backward(paths, weights, strikes, discount,
+                     _regression_knots(paths, n_basis, knots), n_basis)
 
 
 def _smile_core(xj, weights, Ms, s0, r, Ts, n_basis):
     """Strikes / HMC prices / implied vols / reference vols for every
-    maturity: ``(B, nT, nM)`` x 3 and ``(B, nT)``."""
+    maturity: ``(B, nT, nM)`` x 3 and ``(B, nT)``. In phases over every
+    maturity, each a span: the strikes and regression knots, the backward
+    inductions, the Black-Scholes inversions. On the card one kernel
+    (``ops/smile.py``) does the last two, inside ``psmc.smile.regress``."""
     dt = 1.0 / ANNUALIZATION
     discount = math.exp(-r * dt)
-    dlnx = torch.diff(torch.log(xj), dim=-1)
-    strikes_all, prices_all, vols_all, sig_all = [], [], [], []
-    for T in Ts:
-        tau = T * dt
-        rv = (dlnx[..., :T] ** 2).sum(dim=-1) / tau            # (B, N)
-        sigma_T = torch.sqrt((weights * rv).sum(dim=-1))       # (B,)
-        strikes = s0[:, None] * torch.exp(Ms[None] * sigma_T[:, None]
-                                          * math.sqrt(tau))
-        prices = _hmc_prices(xj[..., : T + 1], weights, strikes, discount,
-                             n_basis)
-        vols = bs_implied_vol(prices, s0[:, None], strikes, tau, r)
-        strikes_all.append(strikes)
-        prices_all.append(prices)
-        vols_all.append(vols)
-        sig_all.append(sigma_T)
-    return (torch.stack(strikes_all, 1), torch.stack(prices_all, 1),
-            torch.stack(vols_all, 1), torch.stack(sig_all, 1))
+    count("smile_solves", xj.shape[0] * sum(Ts))
+    with span("psmc.smile.knots"):
+        dlnx = torch.diff(torch.log(xj), dim=-1)
+        strikes_all, sig_all = [], []
+        for T in Ts:
+            tau = T * dt
+            rv = (dlnx[..., :T] ** 2).sum(dim=-1) / tau        # (B, N)
+            sigma_T = torch.sqrt((weights * rv).sum(dim=-1))   # (B,)
+            strikes_all.append(s0[:, None] * torch.exp(
+                Ms[None] * sigma_T[:, None] * math.sqrt(tau)))
+            sig_all.append(sigma_T)
+        # the knots of step t are those of every maturity past t
+        knots = _regression_knots(xj[..., : max(Ts) + 1], n_basis)
+    strikes, sig = torch.stack(strikes_all, 1), torch.stack(sig_all, 1)
+    if xj.device.type == "cuda":
+        with span("psmc.smile.regress"):
+            prices, vols = smile_ops.hedged_mc_smile(xj, weights, strikes,
+                                                     knots, Ts, discount, r)
+        return strikes, prices.to(xj.dtype), vols, sig
+    with span("psmc.smile.regress"):
+        prices_all = [_backward(xj[..., : T + 1], weights, strikes_all[i],
+                                discount, knots, n_basis)
+                      for i, T in enumerate(Ts)]
+    with span("psmc.smile.vols"):
+        vols_all = [bs_implied_vol(prices, s0[:, None], strikes_all[i],
+                                   T * dt, r)
+                    for i, (T, prices) in enumerate(zip(Ts, prices_all))]
+    return (strikes, torch.stack(prices_all, 1), torch.stack(vols_all, 1),
+            sig)
 
 
 @dataclass
@@ -197,11 +252,13 @@ def _smiles(xj, w, Ts, Ms, r, n_basis) -> list:
             f"max maturity {Ts.max()} exceeds path length {xj.shape[-1] - 1}"
         )
     s0 = xj[:, 0, 0]
-    out = _smile_core(xj, w, torch.as_tensor(Ms_np, dtype=torch.float32,
+    count("smile_contexts", xj.shape[0])
+    out = _smile_core(xj, w, torch.as_tensor(Ms_np, dtype=xj.dtype,
                                              device=xj.device),
                       s0, float(r), tuple(int(t) for t in Ts), n_basis)
     strikes, prices, vols, sig, s0 = (as_numpy(a) for a in (*out, s0))
     strikes = strikes.astype(np.float64)
+    prices, vols, sig = (a.astype(np.float32) for a in (prices, vols, sig))
     return [
         Smile(Ts=Ts, Ms=Ms_np, strikes=strikes[b], prices=prices[b],
               vols=vols[b], sigma_ref=sig[b], spot=float(s0[b]), r=float(r))
@@ -225,7 +282,8 @@ def compute_smile(
 ) -> Smile:
     """Hedged-Monte-Carlo smile on ``(N, T+1)`` price paths sharing one
     first price ``S0``, under the path measure ``ave`` (``None`` = uniform).
-    Runs on the device of ``x`` when it is a tensor."""
+    Runs on the device of ``x`` when it is a tensor; on the card
+    ``n_basis`` is at most 84 (``ops/smile.py`` says why)."""
     xj = _as_paths(x)
     if xj.ndim != 2:
         raise ValueError(f"paths must be (N, T+1), got {tuple(xj.shape)}")
@@ -253,7 +311,8 @@ def compute_smile_batch(
     """Hedged-MC smiles for a batch of path sets ``(B, N, T+1)``, each row
     sharing its own initial price; ``weights`` are optional ``(B, N)`` path
     measures (rows need not be normalised). Returns a list of B
-    :class:`Smile`; ``validate=False`` skips the common-S0 check."""
+    :class:`Smile`; ``validate=False`` skips the common-S0 check. On the
+    card ``n_basis`` is at most 84 (``ops/smile.py`` says why)."""
     xj = _as_paths(x)
     if xj.ndim != 3:
         raise ValueError(f"paths must be (B, N, T+1), got {tuple(xj.shape)}")

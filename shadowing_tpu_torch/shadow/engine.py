@@ -52,7 +52,7 @@ from shadowing_tpu_torch.ops.topk import (
 )
 from shadowing_tpu_torch.parallel import sharding as psh
 from shadowing_tpu_torch.parallel.multihost import host_row_range
-from shadowing_tpu_torch.pricing.hedged_mc import compute_smile_batch
+from shadowing_tpu_torch.pricing import hedged_mc
 from shadowing_tpu_torch.shadow.context import ContextManager, PredictionContext
 from shadowing_tpu_torch.shadow.distance import PathDistance
 from shadowing_tpu_torch.shadow.embedding import PathEmbedding, embed_windows
@@ -227,9 +227,13 @@ def _aggregate_predictions(distances, paths, to_predict, proba_name, eta,
 
 
 def _smile_inputs(dists, out_paths, eta: float, x_init: float):
-    """``(B, k, h)`` futures -> ``(B, k, h+1)`` prices anchored at ``x_init``
-    plus Gaussian-kernel path weights."""
-    fut = out_paths[:, :, 0, :]
+    """``(B, k, h)`` futures -> ``(B, k, h+1)`` float64 prices anchored at
+    ``x_init`` plus Gaussian-kernel path weights. The prices are float64 so
+    that ``sigma_T`` and the strikes come from the returns as they are:
+    float32 prices near 100 round each log-return by ~5e-7, which moves
+    ``sigma_T`` by up to ~1e-5 and the prices under weights on a few paths
+    by several 1e-6 of the spot."""
+    fut = out_paths[:, :, 0, :].to(torch.float64)
     lnx = torch.cat([torch.zeros_like(fut[..., :1]),
                      torch.cumsum(fut, dim=-1)], dim=-1)
     prices = torch.exp(lnx) * x_init
@@ -724,9 +728,9 @@ class PathShadowing:
             prices, weights = _smile_inputs(
                 dists, self.context.select_out_context(paths), float(eta),
                 float(x_init))
-            # prices start at x_init by construction: skip validation
-            return compute_smile_batch(prices, Ts, Ms, r, weights=weights,
-                                       validate=False)
+            # prices start at x_init by construction and the weights sum
+            # to 1: no validation, and the float64 prices stay float64
+            return hedged_mc._smiles(prices, weights, Ts, Ms, r, n_basis=12)
 
     def conditional_smile(
         self,

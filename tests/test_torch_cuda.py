@@ -394,6 +394,18 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="MAX_DIM"):
         factored.score_blockmin_factored(E, norms[:, :256].contiguous(),
                                          torch.zeros((1, 49), device=cuda))
+    from shadowing_tpu_torch.ops import smile
+
+    paths, w, K, knots = smile_problem(cuda, 1, 64, [5], 3, 12, False)
+    with pytest.raises(ValueError, match="no hedged_mc_smile kernel"):
+        smile.hedged_mc_smile(paths.cpu(), w.cpu(), K.cpu(), knots.cpu(), [5],
+                              1.0, 0.0)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        smile.hedged_mc_smile(paths, w, K, knots, [6], 1.0, 0.0)
+    # 4 m^2 + 3 m doubles of shared memory at m = 85 pass the H100's 227 KB
+    with pytest.raises(RuntimeError, match="hedged_mc_smile"):
+        smile.hedged_mc_smile(paths, w, K, knots[..., :1].expand(1, 4, 85),
+                              [5], 1.0, 0.0)
 
 
 def scattering_target(T, J, seed=0):
@@ -553,3 +565,140 @@ if __name__ == "__main__":
     import sys
 
     _mesh_rank(sys.argv[1])
+
+
+def smile_problem(cuda, B, N, Ts, nK, m, concentrated, seed=0):
+    """Price paths ``(B, N, max(Ts) + 1)`` float64 near 100, Softmax-like
+    weights on one or two paths or spread over all, strikes ``(B, nT, nK)``
+    around the spot and the regression knots of every step."""
+    from shadowing_tpu_torch.pricing import hedged_mc
+
+    rng = np.random.default_rng(seed)
+    H = max(Ts)
+    r = rng.standard_t(4, size=(B, N, H)) * 0.0126 / np.sqrt(2)
+    paths = 100.0 * np.exp(np.concatenate(
+        [np.zeros((B, N, 1)), np.cumsum(r, axis=-1)], axis=-1))
+    z = -rng.uniform(0.0, 30.0 if concentrated else 0.5, size=(B, N))
+    z[:, :2] = 0.0 if concentrated else z[:, :2]
+    w = np.exp(z) / np.exp(z).sum(axis=1, keepdims=True)
+    M = np.linspace(-2, 2, nK)
+    K = 100.0 * np.exp(M[None, None] * 0.2 * np.sqrt(np.asarray(Ts) / 252)[None, :, None])
+    K = np.broadcast_to(K, (B, len(Ts), nK)).copy()
+    t = lambda a, dt=torch.float64: torch.as_tensor(a, dtype=dt, device=cuda)
+    paths, w32, K = t(paths), t(w, torch.float32), t(K)
+    return paths, w32, K, hedged_mc._regression_knots(paths, m)
+
+
+@pytest.mark.parametrize("B,N,Ts,nK,m,concentrated,r", [
+    (1, 1024, [5, 10, 20], 9, 12, True, 0.0),     # the cell's shapes
+    (1, 1024, [5, 10, 20], 9, 12, False, 0.0),
+    (3, 256, [1, 2, 7], 1, 16, True, 0.05),       # T = 1 and 2, one strike
+    (2, 2048, [20], 64, 12, False, 0.02),         # the moment knots
+    (2, 100, [3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18], 5, 2,
+     True, 0.0),                                  # 16 maturities, m = 2
+    (2, 300, list(range(2, 22)), 70, 20, True, 0.0),   # 2 launches of Ts
+    (1, 500, [4, 9], 200, 40, False, 0.01),       # 80 rows, 2 of strikes
+])
+def test_smile_kernel_equals_the_plain_version(cuda, B, N, Ts, nK, m,
+                                               concentrated, r):
+    """``ops/smile.py::hedged_mc_smile`` against the plain version on the
+    same CUDA tensors: prices to 1e-9 of the spot (the kernel sums the
+    normal equations in another order), vols bit-equal where the prices
+    round to the same float32."""
+    import math
+
+    from shadowing_tpu_torch.ops import smile
+    from shadowing_tpu_torch.pricing import black_scholes, hedged_mc
+
+    paths, w, K, knots = smile_problem(cuda, B, N, Ts, nK, m, concentrated)
+    disc = math.exp(-r / 252)
+    before = smile.SMILE.launches
+    prices, vols = smile.hedged_mc_smile(paths, w, K, knots, Ts, disc, r)
+    assert smile.SMILE.launches == before + 1      # calls, not CUDA launches
+    want = torch.stack([hedged_mc._backward(paths[..., : T + 1], w, K[:, i],
+                                            disc, knots, m)
+                        for i, T in enumerate(Ts)], 1)
+    torch.cuda.synchronize()
+    assert prices.dtype == torch.float64 and vols.dtype == torch.float32
+    assert (prices - want).abs().max().item() <= 1e-9 * 100.0
+    same = prices.float() == want.float()
+    plain = torch.stack([black_scholes.bs_implied_vol(
+        want[:, i], paths[:, 0, 0, None], K[:, i], T * (1.0 / 252), r)
+        for i, T in enumerate(Ts)], 1)
+    assert torch.equal(vols.isnan(), plain.isnan())
+    fin = same & ~plain.isnan()
+    assert torch.equal(vols[fin], plain[fin])
+
+
+def test_smile_at_k1024_on_the_card_meets_the_float64_reference(cuda):
+    """``predict_and_smile`` at k = 1,024 under eta_smile = 0.075, where
+    the weights sit on one or two winners: the card's prices and vols equal
+    the plain float64 reference's (``benchmark/reference/hedged_mc.py``)
+    on the port's own winners, prices to 2e-7 of the spot, vols to 1e-4
+    where the price lies 1e-4 of the spot inside the prices that have
+    one (``tests/test_torch_smile_reference.py`` says why)."""
+    import sys
+    from pathlib import Path
+
+    import shadowing_tpu_torch as P
+
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    from benchmark.reference import hedged_mc as ref
+
+    Ts, Ms, spot = [5, 10, 20], np.linspace(-2, 2, 9), 100.0
+    rng = np.random.default_rng(5)
+    ds = rng.normal(0, 0.0126, size=(2048, 1, 600)).astype(np.float32)
+    # one context near a window of the data (one effective path), one
+    # drawn afresh (a few)
+    ctx = np.concatenate([
+        ds[7:8, :, 200:220] + rng.normal(0, 0.004, size=(1, 1, 20)),
+        rng.normal(0, 0.0126, size=(1, 1, 20))]).astype(np.float32)
+    eng = P.PathShadowing(P.Identity(20), P.RelativeMSE(), ds,
+                          P.PredictionContext(20), device="cuda")
+    d, paths, _ = eng.shadow(ctx, k=1024)
+    _, _, smiles = eng.predict_and_smile(
+        ctx, k=1024, to_predict=lambda x: P.realized_variance(x[:, :, 0, :], Ts),
+        Ts=Ts, Ms=Ms, eta=0.1, eta_smile=0.075)
+    n_compared = 0
+    for b, sm in enumerate(smiles):
+        assert ref.effective_paths(np.float64(d[b]), 0.075) < 24
+        want = ref.smile(np.float64(d[b]), np.float64(paths[b, :, 0, 20:]),
+                         Ts, Ms, 0.075, spot)
+        assert np.abs(np.float64(sm.prices) - want["prices"]).max() <= 2e-7 * spot
+        compared = np.isfinite(want["vols"]) & (want["room"] >= 1e-4 * spot)
+        gap = np.abs(np.float64(sm.vols)[compared] - want["vols"][compared])
+        assert np.isfinite(gap).all() and (gap <= 1e-4).all()
+        n_compared += int(compared.sum())
+    assert n_compared >= 9
+
+
+def test_public_smile_on_the_card_keeps_the_cpu_range(cuda):
+    """``compute_smile_batch`` on CUDA tensors past one launch's maturities
+    (16), with 70 moneynesses and 20 hats, gives the CPU's smile: prices
+    within 1e-6 of the spot (both regress in float64, to ~1e-9 of the
+    spot; the :class:`Smile` rounds them to float32, whose step at 100 is
+    7.6e-6), and vols within 1e-4 where both lie 1e-4 of the spot inside
+    the solvable bracket (the two devices' ``erf`` may differ by an ulp)."""
+    import math
+
+    from shadowing_tpu_torch.pricing import black_scholes, hedged_mc
+
+    Ts, Ms = list(range(2, 22)), np.linspace(-2, 2, 70)
+    paths, w, _, _ = smile_problem(cuda, 2, 300, Ts, 1, 2, False)
+    x, wts = paths.float(), w
+    card = hedged_mc.compute_smile_batch(x, Ts, Ms, weights=wts, n_basis=20)
+    cpu = hedged_mc.compute_smile_batch(x.cpu(), Ts, Ms, weights=wts.cpu(),
+                                        n_basis=20)
+    for a, b in zip(card, cpu):
+        assert a.prices.shape == (20, 70)
+        assert np.abs(a.prices - b.prices).max() <= 1e-6 * b.spot
+        tau = np.asarray(Ts)[:, None] / 252
+        lo = np.asarray(black_scholes.bs_call_price(
+            b.spot, b.strikes, tau, black_scholes.SIGMA_LO))
+        hi = np.asarray(black_scholes.bs_call_price(
+            b.spot, b.strikes, tau, black_scholes.SIGMA_HI))
+        room = np.minimum(b.prices - lo, hi - b.prices)
+        inside = room >= 1e-4 * b.spot
+        assert inside.sum() >= 100
+        assert np.abs(a.vols[inside] - b.vols[inside]).max() <= 1e-4
+        assert math.isclose(a.spot, b.spot)

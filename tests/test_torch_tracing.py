@@ -98,6 +98,33 @@ def test_predict_under_the_profiler_emits_nested_spans(data, tmp_path):
     assert names.count("psmc.budget") >= 2
 
 
+def test_predict_and_smile_opens_the_smile_phases_and_counts(data, tmp_path):
+    """Inside ``psmc.smile``, after the engine's weights and price paths:
+    ``psmc.smile.knots`` (sigma_T, strikes and knots of every maturity),
+    ``psmc.smile.regress`` and ``psmc.smile.vols``, in that order, each
+    around a whole phase. ``smile_contexts`` counts the contexts priced,
+    ``smile_solves`` the normal-equation systems: T per maturity and
+    context (T - 1 steps back, then the last on ``(1, dS_0)``)."""
+    ds, ctx, _ = data
+    eng = engine(ds)
+    before = profiling.counters()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        eng.predict_and_smile(ctx[:3], k=16, to_predict=to_predict, Ts=TS,
+                              Ms=[-1.0, 0.0, 1.0], eta=0.1, eta_smile=0.5)
+    got = delta(before)
+    assert got["smile_contexts"] == 3
+    assert got["smile_solves"] == 3 * sum(TS)
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    spans = psmc_spans(tmp_path / "trace.json")
+    (smile,) = [sp for sp in spans if sp[0] == "psmc.smile"]
+    phases = sorted((sp for sp in spans if sp[0].startswith("psmc.smile.")),
+                    key=lambda sp: sp[1])
+    assert [sp[0] for sp in phases] == [
+        "psmc.smile.knots", "psmc.smile.regress", "psmc.smile.vols"]
+    assert all(inside(sp, smile) for sp in phases)
+
+
 def test_rolling_backtest_opens_its_root_and_ar_linear(data, tmp_path):
     ds, _, series = data
     eng = engine(ds)
