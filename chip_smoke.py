@@ -23,7 +23,10 @@ drives the main path at the README workflow scale (32,768 trajectories x
    its bound (bytes); 3c. the Hedged-MC smile's kernel at the main path's
    shapes (one context of 1,024 winners, Ts = [5, 10, 20], 9 strikes, 12
    hats) under weights on a few paths and spread ones, with its time, the
-   plain version's and its bound;
+   plain version's and its bound; 3d. pass 2's radix select at the cells'
+   (B, n, k) against the stable sort, on adversarial rows, with its time,
+   its bound (one read of the rows), the plain version's and the
+   tournament's that it replaced;
 4. one context: ``predict_and_smile`` on the last 20 daily returns of the
    bundled S&P-like series, checked against the on-card direct oracle;
 5. 64 contexts: ``predict`` through the factored kernel, checked against
@@ -72,7 +75,8 @@ drives the main path at the README workflow scale (32,768 trajectories x
     directory, phase 15's dataset file, and that file cut into 8 shards.
 
 Every check raises on failure. The line before the last is a JSON object
-of the kernels (K1, K2, P2 and HM, the smile's): launch counts summed over
+of the kernels (K1, K2, P2, SL, pass 2's select, and HM, the smile's):
+launch counts summed over
 every path, and per shape the
 error, the times and the bound;
 the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
@@ -103,6 +107,12 @@ SWEEP_B = (1, 2, 4, 8, 16, 32, 64)  # phase 3: contexts per call, w = d = 20
 #: phase 3b: pass 2's rescore at the benchmark cells' (B, w, cap): the
 #: backtest at k = 1,024 and 16,384, the Foveal-126 query at k = 10,000
 RESCORE_SHAPES = ((64, 20, 1408), (64, 20, 16768), (1, 126, 10384))
+#: phase 3d: pass 2's select at the cells' (B, n, k): the block selection
+#: and the final one of the backtest at k = 16,384 and 1,024, of the Foveal
+#: query at k = 10,000
+SELECT_SHAPES = ((64, 1048576, 16768), (64, 2146304, 16384),
+                 (64, 1048576, 1408), (64, 180224, 1024),
+                 (1, 3932160, 10384), (1, 1329152, 10000))
 #: phase 3c: the smile's kernel at the main path's (B, N, nK, m): prices
 #: within SMILE_TOL of the spot of the plain float64 version's (the kernel
 #: sums the normal equations in another order)
@@ -456,6 +466,74 @@ def rescore_vs_plain(y, device) -> list:
     return res
 
 
+def select_vs_plain(device) -> list:
+    """Phase 3d: pass 2's select (``ops/topk.py::select_lowest``) at the
+    cells' ``SELECT_SHAPES`` against the stable sort, on rows of every
+    style (normal, quantized with signed zeros, two values, a fifth
+    ``+inf``, all equal): the same ids in flat order and the same k-th
+    value. Its device time (profiler) beside one read of the rows at
+    ``HBM_BPS``, the plain version's (``_lowest_set``) and the tournament's
+    as pass 2 called it (``topk_min_batched`` at ``cap = k + 128``, then the
+    ids sorted into flat order), on normal rows."""
+    import torch
+
+    from shadowing_tpu_torch.ops import topk
+
+    gen = torch.Generator(device=device).manual_seed(4)
+
+    def styled(B, n, style):
+        """Rows of the given style, or of every style by row at None."""
+        x = torch.randn((B, n), generator=gen, device=device)
+        for b in range(B):
+            st = b % 5 if style is None else style
+            if st == 1:            # ties, signed zeros among them
+                x[b] = torch.round(x[b] * 3) * torch.sign(x[b].flip(0))
+            elif st == 2:          # two values
+                x[b] = torch.where(x[b] < -1.0, -1.0, 0.0)
+            elif st == 3:          # a fifth of the row +inf
+                x[b, torch.rand(n, generator=gen, device=device) < 0.2] = \
+                    float("inf")
+            elif st == 4:          # all equal
+                x[b] = 0.25
+        return x
+
+    res = []
+    for B, n, k in SELECT_SHAPES:
+        label = f"select_lowest B={B} n={n} k={k}"
+        for style in [None] if B > 1 else range(5):
+            x = styled(B, n, style)
+            ids, thr = topk.select_lowest(x, k)
+            v_s, i_s, _ = topk.topk_min_sort(x, k)
+            if not (torch.equal(ids, i_s.sort(dim=1).values)
+                    and torch.equal(thr, v_s[:, -1])):
+                raise AssertionError(f"{label} (style {style}): the ids or "
+                                     "the k-th value differ from the stable "
+                                     "sort's")
+            del x, ids, thr, v_s, i_s
+        x = torch.randn((B, n), generator=gen, device=device)
+        kernel_fn = lambda: topk.select_lowest(x, k)
+        plain_fn = lambda: topk._lowest_set(x, k)
+        tournament_fn = lambda: topk.topk_min_batched(
+            x, k, block=128, cap=k + 128).indices.sort(dim=1)
+        ms = kernel_device_ms(kernel_fn, "select_lowest")
+        bound_ms = 4 * B * n / HBM_BPS * 1e3
+        entry = {"shape": label, "ms": ms, "event_ms": median_ms(kernel_fn),
+                 "bound_ms": bound_ms, "bound_by": "bytes",
+                 "gb_s": 4 * B * n / ms / 1e6, "share": bound_ms / ms,
+                 "plain_ms": median_ms(plain_fn),
+                 "tournament_ms": median_ms(tournament_fn)}
+        log(f"  {label}: ids and k-th value = the stable sort's on every "
+            f"style; kernel {ms:.4f} ms (events {entry['event_ms']:.4f} ms),"
+            f" bound {bound_ms:.4f} ms (bytes, {4 * B * n / 1e6:.1f} MB), "
+            f"{entry['gb_s']:.0f} GB/s, {100 * entry['share']:.1f} % of the "
+            f"bound; plain {entry['plain_ms']:.3f} ms, tournament "
+            f"{entry['tournament_ms']:.3f} ms")
+        res.append(entry)
+        del x
+        torch.cuda.empty_cache()
+    return res
+
+
 def smile_vs_plain(device) -> list:
     """Phase 3c: the Hedged-MC smile's kernel (``ops/smile.py``) against
     its plain version (``_backward`` per maturity, then
@@ -549,6 +627,7 @@ def main_path(dataset, device) -> dict:
     from shadowing_tpu_torch.ops.factored import FACTORED
     from shadowing_tpu_torch.ops.search import RESCORE, TOEPLITZ
     from shadowing_tpu_torch.ops.smile import SMILE
+    from shadowing_tpu_torch.ops.topk import SELECT
     from shadowing_tpu_torch.pricing.black_scholes import (
         SIGMA_HI,
         SIGMA_LO,
@@ -568,14 +647,15 @@ def main_path(dataset, device) -> dict:
 
     # ---- phase 4: one context -------------------------------------------
     TOEPLITZ.launches = FACTORED.launches = RESCORE.launches = 0
-    SMILE.launches = 0
+    SMILE.launches = SELECT.launches = 0
     t0 = time.perf_counter()
     vars_, _, smiles = e2e()
     torch.cuda.synchronize()
     first = time.perf_counter() - t0
     warm = median_wall(e2e)
     k1_launches, p2_launches = TOEPLITZ.launches, RESCORE.launches
-    hm_launches = SMILE.launches
+    hm_launches, sl_launches = SMILE.launches, SELECT.launches
+    selects_twice(sl_launches, p2_launches, "phase 4")
     log(f"phase 4 predict_and_smile (B=1, k={K}): first call {first:.3f} s, "
         f"warm median of 5 {warm:.4f} s; K1 launches {k1_launches}, P2 "
         f"launches {p2_launches}, HM launches {hm_launches}, route "
@@ -628,13 +708,16 @@ def main_path(dataset, device) -> dict:
         return eng.predict(ctx64, k=K, to_predict=to_predict, eta=0.1)
 
     TOEPLITZ.launches = FACTORED.launches = RESCORE.launches = 0
+    SELECT.launches = 0
     t0 = time.perf_counter()
     pred, _ = batched()
     torch.cuda.synchronize()
     first64 = time.perf_counter() - t0
     warm64 = median_wall(batched)
     k2_launches = FACTORED.launches
+    selects_twice(SELECT.launches, RESCORE.launches, "phase 5")
     p2_launches += RESCORE.launches
+    sl_launches += SELECT.launches
     log(f"phase 5 predict (B=64, k={K}): E build {e_build:.3f} s, first call "
         f"{first64:.3f} s, warm median of 5 {warm64:.4f} s; K2 launches "
         f"{k2_launches}, K1 launches {TOEPLITZ.launches}, P2 launches "
@@ -664,7 +747,7 @@ def main_path(dataset, device) -> dict:
 
     # ---- phase 6: the redo path -----------------------------------------
     cap = K // 128 // 2
-    RESCORE.launches = 0
+    RESCORE.launches = SELECT.launches = 0
     _, _, i_redo = eng.shadow_device(ctx, k=K, tournament_cap=cap)
     redo = eng.last_metrics["redo_contexts"]
     if redo < 1 or not np.array_equal(i_redo.cpu().numpy(), i):
@@ -672,12 +755,14 @@ def main_path(dataset, device) -> dict:
     if RESCORE.launches < 2:
         raise AssertionError(f"redo path: P2 launches {RESCORE.launches}, "
                              "not the first pass 2 and its escalated retry")
+    selects_twice(SELECT.launches, RESCORE.launches, "phase 6")
     p2_launches += RESCORE.launches
+    sl_launches += SELECT.launches
     log(f"phase 6 redo (tournament_cap={cap}): {redo} context redone, ids "
         f"equal phase 4's, P2 launches {RESCORE.launches}; "
         f"{[s for s in eng.routing_log if s.startswith('redo')]}")
     return {"K1": k1_launches, "K2": k2_launches, "P2": p2_launches,
-            "HM": hm_launches, "e2e_warm_s": warm,
+            "SL": sl_launches, "HM": hm_launches, "e2e_warm_s": warm,
             "predict64_warm_s": warm64, "e_build_s": e_build,
             # what phase 15 is held to
             "ctx": ctx, "ctx64": ctx64, "ids": i, "pred64": pred,
@@ -725,19 +810,20 @@ def dataset_contexts(dataset, w: int, n: int, seed: int) -> np.ndarray:
 
 
 class Launches:
-    """K1/K2/P2 (pass 2's rescore)/HM (the smile's) launch counts of one
-    driven path: zeroed on entry, read on exit, summed over every path into
-    ``totals``."""
+    """K1/K2/P2 (pass 2's rescore)/SL (pass 2's select)/HM (the smile's)
+    launch counts of one driven path: zeroed on entry, read on exit, summed
+    over every path into ``totals``."""
 
-    totals = {"K1": 0, "K2": 0, "P2": 0, "HM": 0}
+    totals = {"K1": 0, "K2": 0, "P2": 0, "SL": 0, "HM": 0}
 
     def __enter__(self):
         from shadowing_tpu_torch.ops.factored import FACTORED
         from shadowing_tpu_torch.ops.search import RESCORE, TOEPLITZ
         from shadowing_tpu_torch.ops.smile import SMILE
+        from shadowing_tpu_torch.ops.topk import SELECT
 
         self.kernels = {"K1": TOEPLITZ, "K2": FACTORED, "P2": RESCORE,
-                        "HM": SMILE}
+                        "SL": SELECT, "HM": SMILE}
         for k in self.kernels.values():
             k.launches = 0
         return self
@@ -751,6 +837,14 @@ class Launches:
     def require(self, name: str, what: str) -> None:
         if self.counts[name] == 0:
             raise AssertionError(f"{what} never launched {name}")
+        if name == "P2":
+            selects_twice(self.counts["SL"], self.counts["P2"], what)
+
+
+def selects_twice(sl: int, p2: int, what: str) -> None:
+    """Every pass 2 on the card selects through the kernel, twice."""
+    if sl != 2 * p2:
+        raise AssertionError(f"{what}: {sl} SL launches for {p2} pass 2s")
 
 
 def fused_route(dataset, device) -> None:
@@ -1459,6 +1553,7 @@ def mesh_worker(out: Path, device: str) -> None:
     from shadowing_tpu_torch.ops.factored import FACTORED
     from shadowing_tpu_torch.ops.search import RESCORE, TOEPLITZ
     from shadowing_tpu_torch.ops.smile import SMILE
+    from shadowing_tpu_torch.ops.topk import SELECT
     from shadowing_tpu_torch.parallel import (
         LAST_MERGE_PAYLOAD,
         data_mesh,
@@ -1486,11 +1581,12 @@ def mesh_worker(out: Path, device: str) -> None:
     def driven(name, fn):
         """The counts zeroed before one driven path and read after it."""
         TOEPLITZ.launches = FACTORED.launches = RESCORE.launches = 0
-        SMILE.launches = 0
+        SMILE.launches = SELECT.launches = 0
         res, first, warm = first_and_warm(fn, 5)
         info[name] = {"first_s": first, "warm_s": warm,
                       "K1": TOEPLITZ.launches, "K2": FACTORED.launches,
-                      "P2": RESCORE.launches, "HM": SMILE.launches}
+                      "P2": RESCORE.launches, "SL": SELECT.launches,
+                      "HM": SMILE.launches}
         return res
 
     ctx, ctx64 = inp["ctx"], inp["ctx64"]
@@ -1606,6 +1702,9 @@ def mesh_phase(path: dict, device) -> dict:
             if info[tag][kernel] == 0:
                 raise AssertionError(f"rank {r}: the mesh path {tag} never "
                                      f"launched {kernel}")
+        for tag in ("k1", "k2"):
+            selects_twice(info[tag]["SL"], info[tag]["P2"],
+                          f"rank {r}, the mesh path {tag}")
         if not info["factored_grant"] or info["redo_before"] or \
                 info["redo_contexts"] < 1:
             raise AssertionError(f"rank {r}: routing {info['factored_grant']}"
@@ -1663,7 +1762,7 @@ def mesh_phase(path: dict, device) -> dict:
     log(f"  checks: ranks agree; {'; '.join(checks)}; task_split = "
         f"({MESH_RANKS}, rank)")
     return {t: sum(i[n][t] for i, _ in ranks for n in ("k1", "k2"))
-            for t in ("K1", "K2", "P2", "HM")}
+            for t in ("K1", "K2", "P2", "SL", "HM")}
 
 
 # --------------------------------------------------------------------------
@@ -1878,6 +1977,10 @@ def main() -> int:
     rescore = rescore_vs_plain(y, device)
     del y
     torch.cuda.empty_cache()
+    log("phase 3d pass-2 select kernel vs the stable sort (profiler device "
+        "time; plain and tournament medians of 5):")
+    select = select_vs_plain(device)
+    torch.cuda.empty_cache()
     log("phase 3c Hedged-MC smile kernel vs plain (profiler device time; "
         "events medians of 5):")
     smile = smile_vs_plain(device)
@@ -1904,10 +2007,10 @@ def main() -> int:
     reference_cell(device, card)
     shard_reader(device)
     launches = {n: path[n] + Launches.totals[n] + mesh[n]
-                for n in ("K1", "K2", "P2", "HM")}
+                for n in ("K1", "K2", "P2", "SL", "HM")}
     log(f"launches over every path: {launches} (phases 4-6 {path['K1']} K1, "
-        f"{path['K2']} K2, {path['P2']} P2, {path['HM']} HM; phases 7-14 and "
-        f"16-17 {Launches.totals}; phase 15 {mesh})")
+        f"{path['K2']} K2, {path['P2']} P2, {path['SL']} SL, {path['HM']} HM;"
+        f" phases 7-14 and 16-17 {Launches.totals}; phase 15 {mesh})")
     kernels = []
     for name, tag, source, replaces in (
             ("blockmin_toeplitz", "K1",
@@ -1931,6 +2034,15 @@ def main() -> int:
         **{k: rescore[1][k] for k in ("max_abs_err", "ms", "plain_ms",
                                       "bound_ms", "bound_by")},
         "library_ms": None, "library": LIBRARY, "shapes": rescore})
+    kernels.append({
+        "name": "select_lowest", "route": "cuda",
+        "source": "shadowing_tpu_torch/csrc/select_lowest.cu",
+        "replaces": None, "launches": launches["SL"],
+        **{k: select[1][k] for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by")},
+        "max_abs_err": 0.0, "library_ms": None,
+        "library": "none: torch.topk gives neither the tie rule nor flat "
+        "order", "shapes": select})
     kernels.append({
         "name": "hedged_mc_smile", "route": "cuda",
         "source": "shadowing_tpu_torch/csrc/hedged_mc.cu",

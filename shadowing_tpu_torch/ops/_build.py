@@ -140,3 +140,18 @@ def _error_name(err: int) -> str:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def check_tensor(t: torch.Tensor, name: str, ndim: int, device,
+                 dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of rank ``ndim``
+    on ``device`` — what the kernels' raw pointers assume."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
+        kind = str(dtype).removeprefix("torch.")
+        raise ValueError(f"{name} must be a contiguous {kind} {ndim}-d tensor, "
+                         f"got {t.dtype} {tuple(t.shape)} "
+                         f"contiguous={t.is_contiguous()}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")

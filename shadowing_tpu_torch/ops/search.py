@@ -16,8 +16,11 @@ Port of :mod:`shadowing_tpu.ops.pallas_search`.
   ``csrc/rescore_candidates.cu``, one launch; on a CPU tensor its plain
   version, one ``addcmul_`` per tap), take the exact k smallest (lower flat
   id first on ties) and certify the result against the best unselected
-  block with a self-calibrated guard band. Both selections go through the
-  certified tournament of :mod:`shadowing_tpu_torch.ops.topk`, whose flags
+  block with a self-calibrated guard band. On a CUDA tensor both selections
+  are the exact radix select ``csrc/select_lowest.cu``
+  (:func:`~shadowing_tpu_torch.ops.topk.select_lowest`, two launches a
+  call); on a CPU tensor they go through the certified tournament of
+  :mod:`shadowing_tpu_torch.ops.topk`, as the JAX package does, whose flags
   join pass 2's own.
 
 Flat ids are ``traj * n_out + t`` in int64; blocks use the r-major id
@@ -32,9 +35,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from shadowing_tpu_torch.ops._build import Kernel, ptr
+from shadowing_tpu_torch.ops._build import Kernel, check_tensor, ptr
 from shadowing_tpu_torch.ops.sliding import sliding_dot
-from shadowing_tpu_torch.ops.topk import topk_min_batched
+from shadowing_tpu_torch.ops.topk import select_lowest, topk_min_batched
 from shadowing_tpu_torch.utils.profiling import span
 
 L = 128                   # window starts per block
@@ -54,21 +57,6 @@ RESCORE = Kernel("rescore_candidates", [ctypes.c_void_p] * 7
 
 def n_blocks(n_out: int) -> int:
     return -(-n_out // L)
-
-
-def check_tensor(t: torch.Tensor, name: str, ndim: int, device,
-                 dtype: torch.dtype = torch.float32) -> None:
-    """Raise unless ``t`` is a contiguous ``dtype`` tensor of rank ``ndim``
-    on ``device`` — what the kernels' raw pointers assume."""
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
-        kind = str(dtype).removeprefix("torch.")
-        raise ValueError(f"{name} must be a contiguous {kind} {ndim}-d tensor, "
-                         f"got {t.dtype} {tuple(t.shape)} "
-                         f"contiguous={t.is_contiguous()}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
 
 
 def _fold_min(s: torch.Tensor, n_out: int) -> torch.Tensor:
@@ -285,17 +273,25 @@ def pass2_from_bmin(
         cap = min(max(k + 384, 512), nb)
     cap = min(max(cap, -(-k // L)), nb)
 
+    on_card = bmin.device.type == "cuda"
     with span("psmc.pass2.select"):
-        # cap best blocks per context — the tournament instead of a flat
-        # top-k or sort over millions of block minima
-        mu_sel, bidx, sel_ok = topk_min_batched(bmin.reshape(B, nb), cap,
-                                                block=L, cap=cap + 128)
+        # the cap best blocks per context, ids in flat order (the candidate
+        # order fixes the tie rule), with their pass-1 minima to calibrate
+        # the guard below
+        if on_card:
+            bidx, mu_cap = select_lowest(bmin.reshape(B, nb), cap)
+            mu_sorted = torch.gather(bmin.reshape(B, nb), 1, bidx)
+            sel_ok = True
+        else:
+            # the tournament instead of a flat top-k or sort over millions of
+            # block minima
+            mu_sel, bidx, sel_ok = topk_min_batched(bmin.reshape(B, nb), cap,
+                                                    block=L, cap=cap + 128)
+            mu_cap = mu_sel[:, -1]
+            bidx, perm = torch.sort(bidx, dim=1)
+            mu_sorted = torch.gather(mu_sel, 1, perm)
         inf = torch.tensor(float("inf"), device=bmin.device)
-        mu_cap = mu_sel[:, -1] if cap < nb else inf.expand(B)
-        # blocks to flat order (the candidate order fixes the tie rule),
-        # carrying the pass-1 minima along to calibrate the guard below
-        bidx, perm = torch.sort(bidx, dim=1)
-        mu_sorted = torch.gather(mu_sel, 1, perm)
+        mu_cap = mu_cap if cap < nb else inf.expand(B)
         r = bidx // nblk
         j = bidx % nblk
 
@@ -303,11 +299,18 @@ def pass2_from_bmin(
         s, exact_bmin = rescore_candidates(y, norms, g, r, j)     # (B, cap, L)
 
     with span("psmc.pass2.final"):
-        # final exact selection — the tournament again; the k winners
-        # occupy at most k of the cap candidate blocks, so a tight cap is
-        # certified-safe
-        vals, loc, fin_ok = topk_min_batched(s.reshape(B, cap * L), k, block=L,
-                                             cap=k + 128)
+        # final exact selection; the k winners occupy at most k of the cap
+        # candidate blocks, so a tight cap is certified-safe
+        if on_card:
+            loc, _ = select_lowest(s.reshape(B, cap * L), k)
+            vals = torch.gather(s.reshape(B, cap * L), 1, loc)
+            # ascending; lower candidate first among ties, as loc is ascending
+            vals, order = torch.sort(vals, dim=1, stable=True)
+            loc = torch.gather(loc, 1, order)
+            fin_ok = True
+        else:
+            vals, loc, fin_ok = topk_min_batched(s.reshape(B, cap * L), k,
+                                                 block=L, cap=k + 128)
         idx = winner_ids(r, j, loc, n_out)
 
         # self-calibrated guard: the selected blocks' |pass-1 min - exact

@@ -24,16 +24,33 @@ element is then worse than all k winners. ``ok`` certifies this per row;
 callers check it once on the host and redo uncertified rows exactly (the
 engine does), or call :func:`topk_min_checked`.
 
+Pass 2 selects through the tournament on CPU tensors only, as the JAX
+package does. On the card it selects exactly, with no certificate needed,
+through :func:`select_lowest`: the hand-written radix select of
+``csrc/select_lowest.cu``, whose plain version is :func:`_lowest_set`.
+
 Indices are int64. The JAX module's row chunking of the candidate gather
 under a byte budget is a TPU layout rule and has no counterpart here.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from shadowing_tpu_torch.ops._build import Kernel, check_tensor, ptr
+from shadowing_tpu_torch.utils.profiling import count
+
 _DEFAULT_BLOCK = 128
+
+SELECT = Kernel("select_lowest", [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
+# csrc/select_lowest.cu's constants: entries a block reads per step (a warp
+# 256), warps per block, bins of a digit's histogram, state words per row,
+# blocks per SM its launch bounds allow, and the longest row
+_SEL_CHUNK, _SEL_WARPS, _SEL_BINS, _SEL_STATE = 2048, 8, 2048, 8
+_SEL_BLOCKS_PER_SM, _SEL_MAX_N = 4, 1 << 30
 
 #: narrow fold width for the large-k regime: candidates shrink to
 #: ``8 * cap`` while the fold itself stays one streaming pass
@@ -115,13 +132,60 @@ def _lowest_set(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return ids[:, :k], thr[:, 0]
 
 
+def select_tiles(B: int, n: int, sms: int) -> int:
+    """Tiles per row of :func:`select_lowest`'s grid: whole chunks each, and
+    about one wave of blocks over ``sms`` SMs, whether B is 1 or 64."""
+    chunks = -(-n // _SEL_CHUNK)
+    tiles = max(1, min(chunks, _SEL_BLOCKS_PER_SM * sms // B))
+    per_tile = -(-chunks // tiles)
+    return -(-chunks // per_tile)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def select_lowest(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ids ``(B, k)`` int64, ascending, of the k smallest entries of each
+    row of ``x (B, n)`` under the order (value, id), and the k-th smallest
+    value ``(B,)``. ``-0.0`` equals ``0.0``; ``+inf`` is allowed, NaN is
+    not.
+
+    On a CUDA tensor it launches ``csrc/select_lowest.cu`` (counter
+    ``select_kernel_rows``); on a CPU tensor it runs the plain
+    :func:`_lowest_set`. There is no fallback between the two."""
+    check_tensor(x, "x", 2, x.device)
+    B, n = x.shape
+    if k > n:
+        raise ValueError(f"k={k} exceeds number of scores n={n}")
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
+    if x.device.type == "cpu":
+        return _lowest_set(x, k)
+    if x.device.type != "cuda":
+        raise ValueError(f"no select_lowest kernel for device {x.device}")
+    if n > _SEL_MAX_N:
+        raise ValueError(f"n={n} exceeds the kernel's {_SEL_MAX_N} entries")
+    tiles = select_tiles(B, n, _sm_count(x.device))
+    ids = torch.empty((B, k), dtype=torch.int64, device=x.device)
+    thr = torch.empty((B,), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(
+        B * (_SEL_BINS + _SEL_STATE + 3 * _SEL_WARPS * tiles + 2 * n),
+        dtype=torch.int32, device=x.device)
+    SELECT.launch(ptr(x), ptr(ids), ptr(thr), ptr(scratch), B, n, k, tiles)
+    count("select_kernel_rows", B)
+    return ids, thr
+
+
 def topk_min_batched(
     scores: torch.Tensor,  # (B, N)
     k: int,
     block: int = _DEFAULT_BLOCK,
     cap: Optional[int] = None,
 ) -> TopKBatchResult:
-    """Row-wise certified k smallest of a 2-d score tensor.
+    """Row-wise certified k smallest of a 2-d score tensor (counter
+    ``select_tournament_rows``).
 
     The tournament is **adaptive**: at large k the ``cap * block``
     candidates of a 128-wide fold approach n and the tournament would
@@ -132,6 +196,12 @@ def topk_min_batched(
     tournament when the minima are themselves many. Where even that cannot
     shrink the problem the stable sort answers, certified by construction.
     """
+    count("select_tournament_rows", scores.shape[0])
+    return _tournament(scores, k, block, cap)
+
+
+def _tournament(scores: torch.Tensor, k: int, block: int,
+                cap: Optional[int]) -> TopKBatchResult:
     B, n = scores.shape
     if k > n:
         raise ValueError(f"k={k} exceeds number of scores n={n}")
@@ -162,7 +232,7 @@ def topk_min_batched(
     # fixes the tie rule) — recurse through the tournament when G is itself
     # large (the recursion bottoms out in the sort-exact paths)
     if n_blocks > 4 * cap:
-        mu_sel, bidx, sel_ok = topk_min_batched(bmin, cap, _NARROW, cap + 256)
+        mu_sel, bidx, sel_ok = _tournament(bmin, cap, _NARROW, cap + 256)
         mu_cap = mu_sel[:, -1]
         bidx = torch.sort(bidx, dim=1).values
     else:

@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels (pass 1's two, pass 2's rescore) against
-their plain PyTorch versions, on the card, and the paths that run them
-there (the search routes, the synthesis, a mesh of ``torchrun`` ranks).
+"""The hand-written CUDA kernels (pass 1's two, pass 2's rescore and
+select, the smile's) against their plain PyTorch versions, on the card,
+and the paths that run them there (the search routes, the synthesis, a
+mesh of ``torchrun`` ranks).
 
 These tests need an NVIDIA GPU with ``nvcc``; without one they skip. The
 module imports neither JAX nor the JAX package, so it also runs where JAX is
@@ -181,6 +182,124 @@ def test_tournament_equals_the_stable_sort_at_the_pass2_shapes(cuda, k):
     v, i, ok = topk_min_batched(bmin, k + 384, cap=k + 512)
     v_s, i_s, _ = topk_min_sort(bmin, k + 384)
     assert ok.all() and torch.equal(v, v_s) and torch.equal(i, i_s)
+
+
+# ---- pass 2's select ---------------------------------------------------------
+
+def styled_rows(cuda, B, n, k, seed):
+    """Rows of the tournament test's styles by row: normal, quantized, two
+    values, a fifth ``+inf``, short of k finite scores."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    s = torch.randn((B, n), generator=gen, device=cuda)
+    s[1::5] = torch.round(s[1::5] * 3) + 0.0
+    s[2::5] = torch.where(s[2::5] < -1.0, -1.0, 0.0)
+    inf = torch.rand(s[3::5].shape, generator=gen, device=cuda) < 0.2
+    s[3::5] = torch.where(inf, float("inf"), s[3::5])
+    s[4::5, k // 2:] = float("inf")
+    return s
+
+
+def check_select(x, k):
+    """``select_lowest`` = the stable sort's ids in flat order and its k-th
+    value, row by row."""
+    from shadowing_tpu_torch.ops import topk
+
+    before = topk.SELECT.launches
+    ids, thr = topk.select_lowest(x, k)
+    assert topk.SELECT.launches == before + 1
+    v_s, i_s, _ = topk.topk_min_sort(x, k)
+    torch.cuda.synchronize()
+    assert ids.dtype == torch.int64 and ids.shape == (x.shape[0], k)
+    assert torch.equal(ids, i_s.sort(dim=1).values)
+    assert torch.equal(thr, v_s[:, -1])
+
+
+@pytest.mark.parametrize("B,n,k", [
+    (64, 1048576, 16768),   # the backtest's block selection at k = 16,384
+    (64, 1048576, 1408),    # ... and at k = 1,024
+    (64, 2146304, 16384),   # its final selection at k = 16,384
+    (5, 3932160, 10384),    # the Foveal query's block selection, a row a style
+])
+def test_select_lowest_equals_the_stable_sort_at_the_cells_shapes(cuda, B, n,
+                                                                  k):
+    check_select(styled_rows(cuda, B, n, k, seed=k), k)
+
+
+@pytest.mark.parametrize("n", [5000, 300001])   # 300,001: unaligned rows
+@pytest.mark.parametrize("k", [1, 777, "n"])
+def test_select_lowest_signed_zeros_equal_rows_and_extreme_k(cuda, n, k):
+    """-0.0 equals 0.0 (ties among them fill in id order), all-equal rows,
+    k = 1 and k = n, on rows whose length is not a multiple of 4."""
+    k = n if k == "n" else k
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn((6, n), generator=gen, device=cuda)
+    x[0] = torch.where(torch.rand(n, generator=gen, device=cuda) < 0.5,
+                       -0.0, 0.0)
+    x[1] = torch.round(x[1]) * torch.where(x[2] < 0, -1.0, 1.0)  # +-0, +-1
+    x[2] = 3.0
+    x[3] = float("inf")
+    x[4, ::3] = 1e30
+    assert torch.signbit(x[0]).any() and not torch.signbit(x[0]).all()
+    check_select(x, k)
+
+
+def tournament_pass2(bmin, y, norms, g, k, cap):
+    """Pass 2 through the two tournaments, as it ran on the card before the
+    select kernel: ``(vals, ids, ok)``."""
+    from shadowing_tpu_torch.ops.topk import topk_min_batched
+
+    L = search.L
+    B, R, nblk = bmin.shape
+    nb = R * nblk
+    cap = min(max(cap, -(-k // L)), nb)
+    mu_sel, bidx, sel_ok = topk_min_batched(bmin.reshape(B, nb), cap, block=L,
+                                            cap=cap + 128)
+    mu_cap = mu_sel[:, -1] if cap < nb else torch.full((B,), float("inf"),
+                                                       device=bmin.device)
+    bidx, perm = torch.sort(bidx, dim=1)
+    mu_sorted = torch.gather(mu_sel, 1, perm)
+    r, j = bidx // nblk, bidx % nblk
+    s, exact_bmin = search.rescore_candidates(y, norms, g, r, j)
+    vals, loc, fin_ok = topk_min_batched(s.reshape(B, cap * L), k, block=L,
+                                         cap=k + 128)
+    idx = search.winner_ids(r, j, loc, norms.shape[1])
+    err_obs = torch.where(torch.isfinite(mu_sorted) & (exact_bmin < 1e29),
+                          (mu_sorted - exact_bmin).abs(),
+                          torch.zeros_like(exact_bmin)).amax(dim=1)
+    guard = 2.0 * err_obs + 1e-5 * mu_cap.abs() + 1e-12
+    ok = torch.isinf(mu_cap) | (vals[:, -1] + guard < mu_cap)
+    return vals, idx, ok & sel_ok & fin_ok
+
+
+@pytest.mark.parametrize("k,cap", [(10, None), (300, None), (2000, None),
+                                   (300, 4000), (40, 4), (1000, 12)])
+def test_pass2_on_the_card_equals_the_tournaments(cuda, monkeypatch, k, cap):
+    """Bit-equal scores and ids wherever the tournaments certified, and
+    certified wherever they were, at caps large and tiny; the select kernel
+    runs twice a call and the tournament never."""
+    from shadowing_tpu_torch.ops import topk
+    from shadowing_tpu_torch.utils import profiling
+
+    y, norms, g = problem(cuda, 300, 1, 700, 20, 600, 6, seed=k)
+    norms[7] = float("inf")
+    y[11] = y[10]                  # equal windows: ties across rows
+    norms[11] = norms[10]
+    bmin = search.score_blockmin(y, norms, g)
+    cap_t = cap or min(max(k + 384, 512), bmin.shape[1] * bmin.shape[2])
+    v_t, i_t, ok_t = tournament_pass2(bmin, y, norms, g, k, cap_t)
+
+    def no_tournament(*args, **kw):
+        raise AssertionError("pass 2 on the card ran the tournament")
+
+    monkeypatch.setattr(search, "topk_min_batched", no_tournament)
+    before, rows = topk.SELECT.launches, profiling.counters().get(
+        "select_kernel_rows", 0)
+    v, i, ok = search.pass2_from_bmin(bmin, y, norms, g, k, cap)
+    assert topk.SELECT.launches == before + 2
+    assert profiling.counters()["select_kernel_rows"] == rows + 2 * 6
+    assert (ok | ~ok_t).all()
+    assert torch.equal(v[ok_t], v_t[ok_t]) and torch.equal(i[ok_t], i_t[ok_t])
+    assert (v[:, 1:] >= v[:, :-1]).all()
 
 
 def test_shard_reader_rows_land_on_the_card(cuda, tmp_path):

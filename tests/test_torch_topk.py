@@ -25,6 +25,7 @@ from shadowing_tpu_torch.ops import topk
 from shadowing_tpu_torch.parallel import data_mesh
 from shadowing_tpu_torch.parallel import sharding as psh
 from shadowing_tpu_torch.shadow import engine as port_engine
+from shadowing_tpu_torch.utils.profiling import counters
 
 STYLES = ["normal", "ties", "quantized", "infs", "sorted"]
 W, H, K = 16, 8, 24
@@ -178,6 +179,70 @@ def test_lowest_set_breaks_ties_by_id(rng, k):
     ev, ei = stable_oracle(x, k)
     np.testing.assert_array_equal(ids.numpy(), np.sort(ei, axis=1))
     np.testing.assert_array_equal(thr.numpy(), ev[:, -1])
+
+
+@pytest.mark.parametrize("k", [1, 150, 500])
+def test_select_lowest_on_the_cpu_is_the_plain_version(rng, k):
+    """The wrapper on a CPU tensor: the stable sort's ids in flat order and
+    its k-th value, on rows of signed zeros, ties, ``+inf`` and normal
+    scores; it counts no kernel rows."""
+    x = rng.integers(-2, 3, size=(4, 500)).astype(np.float32)
+    x[0] = np.where(rng.random(500) < 0.5, -0.0, 0.0)
+    x[2, 100:] = np.inf
+    x[3] = rng.normal(size=500)
+    rows = counters().get("select_kernel_rows", 0)
+    ids, thr = topk.select_lowest(t(x), k)
+    v_s, i_s, _ = topk.topk_min_sort(t(x), k)
+    assert ids.dtype == torch.int64 and np.signbit(x[0]).any()
+    np.testing.assert_array_equal(ids.numpy(), np.sort(i_s.numpy(), axis=1))
+    np.testing.assert_array_equal(thr.numpy(), v_s[:, -1].numpy())
+    assert counters().get("select_kernel_rows", 0) == rows
+
+
+def test_select_lowest_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros((2, 10))
+    with pytest.raises(ValueError, match="exceeds number of scores"):
+        topk.select_lowest(x, 11)
+    with pytest.raises(ValueError, match="at least 1"):
+        topk.select_lowest(x, 0)
+    for bad in (x.double(), x[0], x.t()):
+        with pytest.raises(ValueError, match="contiguous float32 2-d"):
+            topk.select_lowest(bad, 1)
+
+
+@pytest.mark.parametrize("B,n,tiles", [
+    (64, 1_048_576, 8), (64, 2_146_304, 8), (1, 3_932_160, 480),
+    (1, 1_329_152, 325), (64, 180_224, 8), (3, 5, 1), (1000, 10_000, 1)])
+def test_select_tiles_fill_about_one_wave(B, n, tiles):
+    """Whole chunks a tile, no empty tile, at most one wave of 4 blocks on
+    each of 132 SMs (or one tile a row)."""
+    got = topk.select_tiles(B, n, 132)
+    chunks = -(-n // topk._SEL_CHUNK)
+    per = -(-chunks // got)
+    assert got == tiles and (got - 1) * per < chunks <= got * per
+    assert B * got <= 4 * 132 or got == 1
+
+
+def test_selection_counters_count_rows_of_top_level_calls(rng):
+    """``select_tournament_rows`` adds a call's rows once, however deep the
+    tournament recurses; pass 2 on CPU tensors selects twice through the
+    tournament and never through the kernel."""
+    from test_torch_kernels import make_problem
+
+    def delta(fn):
+        before = counters()
+        fn()
+        after = counters()
+        return {n: after.get(n, 0) - before.get(n, 0)
+                for n in ("select_tournament_rows", "select_kernel_rows")}
+
+    s = t(rng.normal(size=(3, 262_144)).astype(np.float32))
+    assert delta(lambda: topk.topk_min_batched(s, 64, 128, 100)) == {
+        "select_tournament_rows": 3, "select_kernel_rows": 0}
+    y, norms, g, n_out = make_problem(40, 272, 1040, 24, 2)
+    assert delta(lambda: search_ops.two_pass_search(t(y), t(norms), t(g),
+                                                    40)) == {
+        "select_tournament_rows": 4, "select_kernel_rows": 0}
 
 
 # -- pass 2 through the tournament -------------------------------------------
