@@ -284,7 +284,7 @@ def kernels_vs_plain(y, device) -> dict:
 
     from shadowing_tpu_torch.ops import factored, search
     from shadowing_tpu_torch.shadow.embedding import embed_windows
-    from shadowing_tpu_torch.shadow.engine import _window_norms
+    from shadowing_tpu_torch.shadow.routes import _window_norms
 
     def identity_norms(y, w, n_out):        # the Identity(w) engine's norms
         C = y.shape[1]
@@ -473,8 +473,8 @@ def select_vs_plain(device) -> list:
     ``+inf``, all equal): the same ids in flat order and the same k-th
     value. Its device time (profiler) beside one read of the rows at
     ``HBM_BPS``, the plain version's (``_lowest_set``) and the tournament's
-    as pass 2 called it (``topk_min_batched`` at ``cap = k + 128``, then the
-    ids sorted into flat order), on normal rows."""
+    as pass 2 called it before this kernel (``topk_min_batched`` at ``cap =
+    k + 128``, then the ids sorted into flat order), on normal rows."""
     import torch
 
     from shadowing_tpu_torch.ops import topk
@@ -1084,7 +1084,7 @@ def backtest(returns, device) -> None:
         windows,
     )
     from shadowing_tpu_torch.ops import factored, search
-    from shadowing_tpu_torch.shadow.engine import _prep_context
+    from shadowing_tpu_torch.shadow.routes import _prep_context
     from shadowing_tpu_torch.utils.profiling import device_trace
 
     eng = PathShadowing(Identity(W), RelativeMSE(), returns,

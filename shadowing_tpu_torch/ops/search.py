@@ -16,12 +16,11 @@ Port of :mod:`shadowing_tpu.ops.pallas_search`.
   ``csrc/rescore_candidates.cu``, one launch; on a CPU tensor its plain
   version, one ``addcmul_`` per tap), take the exact k smallest (lower flat
   id first on ties) and certify the result against the best unselected
-  block with a self-calibrated guard band. On a CUDA tensor both selections
-  are the exact radix select ``csrc/select_lowest.cu``
-  (:func:`~shadowing_tpu_torch.ops.topk.select_lowest`, two launches a
-  call); on a CPU tensor they go through the certified tournament of
-  :mod:`shadowing_tpu_torch.ops.topk`, as the JAX package does, whose flags
-  join pass 2's own.
+  block with a self-calibrated guard band. Both selections are exact, on
+  every device, through :func:`~shadowing_tpu_torch.ops.topk.select_lowest`:
+  on a CUDA tensor the radix select ``csrc/select_lowest.cu`` (two launches
+  a call), on a CPU tensor its plain version. The guard is then the only
+  flag: it bounds pass 1's error.
 
 Flat ids are ``traj * n_out + t`` in int64; blocks use the r-major id
 ``r * nblk + j`` for both pass-1 kernels.
@@ -37,7 +36,7 @@ import torch.nn.functional as F
 
 from shadowing_tpu_torch.ops._build import Kernel, check_tensor, ptr
 from shadowing_tpu_torch.ops.sliding import sliding_dot
-from shadowing_tpu_torch.ops.topk import select_lowest, topk_min_batched
+from shadowing_tpu_torch.ops.topk import select_lowest
 from shadowing_tpu_torch.utils.profiling import span
 
 L = 128                   # window starts per block
@@ -273,23 +272,12 @@ def pass2_from_bmin(
         cap = min(max(k + 384, 512), nb)
     cap = min(max(cap, -(-k // L)), nb)
 
-    on_card = bmin.device.type == "cuda"
     with span("psmc.pass2.select"):
         # the cap best blocks per context, ids in flat order (the candidate
         # order fixes the tie rule), with their pass-1 minima to calibrate
         # the guard below
-        if on_card:
-            bidx, mu_cap = select_lowest(bmin.reshape(B, nb), cap)
-            mu_sorted = torch.gather(bmin.reshape(B, nb), 1, bidx)
-            sel_ok = True
-        else:
-            # the tournament instead of a flat top-k or sort over millions of
-            # block minima
-            mu_sel, bidx, sel_ok = topk_min_batched(bmin.reshape(B, nb), cap,
-                                                    block=L, cap=cap + 128)
-            mu_cap = mu_sel[:, -1]
-            bidx, perm = torch.sort(bidx, dim=1)
-            mu_sorted = torch.gather(mu_sel, 1, perm)
+        bidx, mu_cap = select_lowest(bmin.reshape(B, nb), cap)
+        mu_sorted = torch.gather(bmin.reshape(B, nb), 1, bidx)
         inf = torch.tensor(float("inf"), device=bmin.device)
         mu_cap = mu_cap if cap < nb else inf.expand(B)
         r = bidx // nblk
@@ -301,16 +289,11 @@ def pass2_from_bmin(
     with span("psmc.pass2.final"):
         # final exact selection; the k winners occupy at most k of the cap
         # candidate blocks, so a tight cap is certified-safe
-        if on_card:
-            loc, _ = select_lowest(s.reshape(B, cap * L), k)
-            vals = torch.gather(s.reshape(B, cap * L), 1, loc)
-            # ascending; lower candidate first among ties, as loc is ascending
-            vals, order = torch.sort(vals, dim=1, stable=True)
-            loc = torch.gather(loc, 1, order)
-            fin_ok = True
-        else:
-            vals, loc, fin_ok = topk_min_batched(s.reshape(B, cap * L), k,
-                                                 block=L, cap=k + 128)
+        loc, _ = select_lowest(s.reshape(B, cap * L), k)
+        vals = torch.gather(s.reshape(B, cap * L), 1, loc)
+        # ascending; lower candidate first among ties, as loc is ascending
+        vals, order = torch.sort(vals, dim=1, stable=True)
+        loc = torch.gather(loc, 1, order)
         idx = winner_ids(r, j, loc, n_out)
 
         # self-calibrated guard: the selected blocks' |pass-1 min - exact
@@ -322,7 +305,6 @@ def pass2_from_bmin(
             torch.zeros_like(exact_bmin)).amax(dim=1)
         guard = 2.0 * err_obs + 1e-5 * mu_cap.abs() + 1e-12
         ok = torch.isinf(mu_cap) | (vals[:, -1] + guard < mu_cap)
-        ok = ok & sel_ok & fin_ok
     return vals, idx, ok
 
 

@@ -8,7 +8,7 @@ a *stable* ascending sort followed by a slice (:func:`topk_min_sort`); where
 value, and ties at it are filled in id order.
 
 A stable sort of millions of scores per context is what dominates a search
-at large k, so the searches select through the **block-min tournament**
+at large k, so the fused route selects through the **block-min tournament**
 (:func:`topk_min_batched`):
 
 1. view each row as blocks and take every block's minimum (one streaming
@@ -24,10 +24,10 @@ element is then worse than all k winners. ``ok`` certifies this per row;
 callers check it once on the host and redo uncertified rows exactly (the
 engine does), or call :func:`topk_min_checked`.
 
-Pass 2 selects through the tournament on CPU tensors only, as the JAX
-package does. On the card it selects exactly, with no certificate needed,
-through :func:`select_lowest`: the hand-written radix select of
-``csrc/select_lowest.cu``, whose plain version is :func:`_lowest_set`.
+Pass 2 of the two-pass search needs no tournament and no certificate of
+its own: on every device it selects exactly through :func:`select_lowest`,
+the hand-written radix select of ``csrc/select_lowest.cu`` on a CUDA tensor
+and its plain version :func:`_lowest_set` on a CPU tensor.
 
 Indices are int64. The JAX module's row chunking of the candidate gather
 under a byte budget is a TPU layout rule and has no counterpart here.

@@ -42,6 +42,13 @@ from shadowing_tpu_torch.parallel.multihost import (
     rank_device,
     shard_dataset_from_local,
 )
+from shadowing_tpu_torch.shadow.routes import (
+    _direct_search,
+    _exact_rescore,
+    _extract_paths,
+    _fused_search,
+    _window_norms,
+)
 from shadowing_tpu_torch.utils.profiling import span
 
 DATA_AXIS = "data"
@@ -206,8 +213,6 @@ def sharded_window_norms(y: torch.Tensor, kernel: torch.Tensor, n_out: int,
                          mesh: Mesh) -> torch.Tensor:
     """``(r_loc, n_out)`` window norms of this rank's shard, ``+inf`` on
     the rows at or past the global row ``R_true``."""
-    from shadowing_tpu_torch.shadow.engine import _window_norms
-
     norms = _window_norms(y, kernel, n_out, n_splits, identity_fast)
     norms[_valid_rows(y.shape[0], R_true, mesh):] = float("inf")
     return norms
@@ -268,8 +273,6 @@ def sharded_fused_search(
     the certified tournament top-k) on this rank's shard, then the k-merge.
     Returns ``(scores (B, k) ascending, global flat ids (B, k), ok (B,))``
     on every rank; ``ok`` is true where every rank certified every chunk."""
-    from shadowing_tpu_torch.shadow.engine import _fused_search
-
     r_loc = y.shape[0]
     k_loc, ns = _local_k(k, r_loc, n_out, n_splits)
     vals, idx, ok = _fused_search(y, norms, g, x_norm2, k_loc, n_out, ns,
@@ -309,8 +312,6 @@ def sharded_direct_search(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The literal oracle on this rank's shard, rows at or past the global
     row ``R_true`` masked out, then the k-merge: ``(distances, ids)``."""
-    from shadowing_tpu_torch.shadow.engine import _direct_search
-
     r_loc = y.shape[0]
     k_loc, ns = _local_k(k, r_loc, n_out, n_splits)
     vals, idx = _direct_search(y, x_emb, kernel, k_loc, n_out, ns, distance,
@@ -356,8 +357,6 @@ def sharded_extract(y: torch.Tensor, flat_idx: torch.Tensor, n_out: int,
     pairs on every rank: each rank cuts the winners whose row it owns and
     contributes zeros elsewhere; one ``all_reduce`` sums them, exactly,
     since only the owner contributes."""
-    from shadowing_tpu_torch.shadow.engine import _extract_paths
-
     if mesh.n_data == 1:
         return _extract_paths(y, flat_idx, n_out, w_extract)
     r_loc = y.shape[0]
@@ -378,8 +377,6 @@ def sharded_finalize_shadow(y, flat_idx, x_emb, kernel, n_out, w_extract,
     ``flat_idx`` is sorted first so the stable sort yields the canonical
     (distance, flat id) order: every route returns the same winner order
     even when distinct windows tie in f32 distance."""
-    from shadowing_tpu_torch.shadow.engine import _exact_rescore
-
     with span("psmc.finalize"):
         flat_idx = torch.sort(flat_idx, dim=-1).values
         paths, idces = sharded_extract(y, flat_idx, n_out, w_extract, mesh)

@@ -23,7 +23,9 @@ kernel, fused, direct that applies. The device is explicit:
 With ``mesh=`` every rank of a :mod:`torch.distributed` world holds a row
 shard and runs each route on it, and the k winners merge across the ranks
 (:mod:`shadowing_tpu_torch.parallel.sharding`); without one the same code
-runs on a mesh of one position, where no collective runs.
+runs on a mesh of one position, where no collective runs. The steps each
+route runs on one device live in :mod:`shadowing_tpu_torch.shadow.routes`,
+below the mesh.
 """
 from __future__ import annotations
 
@@ -38,24 +40,18 @@ from shadowing_tpu_torch.array_types import (
     as_numpy,
     as_torch_f32,
     dim_bct,
-    fp32_exact,
     resolve_device,
 )
 from shadowing_tpu_torch.data.dataset import TimeSeriesDataset
 from shadowing_tpu_torch.ops import factored as factored_ops
 from shadowing_tpu_torch.ops import search as search_ops
-from shadowing_tpu_torch.ops.sliding import sliding_dot
-from shadowing_tpu_torch.ops.topk import (
-    merge_min,
-    topk_min_batched,
-    topk_min_sort,
-)
 from shadowing_tpu_torch.parallel import sharding as psh
 from shadowing_tpu_torch.parallel.multihost import host_row_range
 from shadowing_tpu_torch.pricing import hedged_mc
 from shadowing_tpu_torch.shadow.context import ContextManager, PredictionContext
 from shadowing_tpu_torch.shadow.distance import PathDistance
-from shadowing_tpu_torch.shadow.embedding import PathEmbedding, embed_windows
+from shadowing_tpu_torch.shadow.embedding import PathEmbedding
+from shadowing_tpu_torch.shadow.routes import _prep_context
 from shadowing_tpu_torch.stats.proba import DiscreteProba, Softmax, Uniform
 from shadowing_tpu_torch.utils.profiling import count, span
 
@@ -91,128 +87,6 @@ def _contexts(x_context: Array) -> Array:
     if not isinstance(x_context, torch.Tensor):
         x_context = np.asarray(x_context, dtype=np.float32)
     return dim_bct(x_context)
-
-
-# --------------------------------------------------------------------------
-# window norms ‖h(y_t)‖² — context-independent, cached per engine
-# --------------------------------------------------------------------------
-
-def _window_norms(y: torch.Tensor, kernel: torch.Tensor, n_out: int,
-                  n_splits: int, identity_fast: bool) -> torch.Tensor:
-    """``(R, n_out)`` squared embedding norms of every window, in
-    ``n_splits`` row chunks."""
-    R = y.shape[0]
-    chunk = -(-R // n_splits)
-    out = torch.empty((R, n_out), dtype=torch.float32, device=y.device)
-    if identity_fast:
-        # exact when every kernel row has at most one nonzero tap: then
-        # ||E||^2 = sum_tau (sum_d k[d,c,tau]^2) y[tau]^2 — one sliding dot
-        # of y^2 with the squared-tap filter instead of a d-channel pass
-        k2 = (kernel ** 2).sum(dim=0, keepdim=True)
-    for r0 in range(0, R, chunk):
-        y_c = y[r0 : r0 + chunk]
-        if identity_fast:
-            out[r0 : r0 + chunk] = sliding_dot(y_c * y_c, k2, n_out)[:, 0]
-        else:
-            e = sliding_dot(y_c, kernel, n_out)               # (r, d, n_out)
-            out[r0 : r0 + chunk] = (e * e).sum(dim=1)
-    return out
-
-
-# --------------------------------------------------------------------------
-# the literal oracle
-# --------------------------------------------------------------------------
-
-def _direct_search(y: torch.Tensor, x_emb: torch.Tensor, kernel: torch.Tensor,
-                   k: int, n_out: int, n_splits: int, distance: PathDistance,
-                   n_valid_rows: Optional[int] = None):
-    """Embed every window, broadcast the distance, sort-exact top-k per row
-    chunk, exact running merge (the reference algorithm). Rows at or past
-    ``n_valid_rows`` (default: none) score ``+inf``. Returns the distances
-    and int64 flat ids ``(B, k)``, ``traj * n_out + t``."""
-    R = y.shape[0]
-    B = x_emb.shape[0]
-    chunk = -(-R // n_splits)
-    valid = R if n_valid_rows is None else n_valid_rows
-    d_run = torch.full((B, k), float("inf"), device=y.device)
-    i_run = torch.full((B, k), torch.iinfo(torch.int64).max,
-                       dtype=torch.int64, device=y.device)
-    for r0 in range(0, R, chunk):
-        e = sliding_dot(y[r0 : r0 + chunk], kernel, n_out)   # (r, d, T')
-        d = distance.forward(x_emb[:, None, None, :],
-                             e.transpose(1, 2)[None])        # (B, r, T')
-        d[:, max(valid - r0, 0):] = float("inf")
-        vals, idx, _ = topk_min_sort(d.reshape(B, -1), min(k, d[0].numel()))
-        d_run, i_run = merge_min(d_run, i_run, vals, idx + r0 * n_out, k)
-    return d_run, i_run
-
-
-# --------------------------------------------------------------------------
-# fused search: combined-filter cross term + exact top-k, row chunks
-# --------------------------------------------------------------------------
-
-def _fused_search(y: torch.Tensor, norms: torch.Tensor, g: torch.Tensor,
-                  x_norm2: torch.Tensor, k: int, n_out: int, n_splits: int,
-                  distance: PathDistance, cap: Optional[int] = None):
-    """Cross terms ``y ⋆ g_b`` of a row chunk (fp32 ``conv1d``), the
-    distance's selection score, the chunk's k smallest through the certified
-    tournament (lower flat id first on ties; ``cap`` forces its block count)
-    and an exact running merge. Rows are never padded: the last chunk is
-    just shorter. A row whose norms are ``+inf`` scores ``+inf``, whatever
-    the distance. Returns the scores and int64 flat ids ``(B, k)`` and the
-    flags ``ok (B,)``, true where every chunk's selection was certified."""
-    R = y.shape[0]
-    B = g.shape[0]
-    chunk = -(-R // n_splits)
-    d_run = torch.full((B, k), float("inf"), device=y.device)
-    i_run = torch.full((B, k), torch.iinfo(torch.int64).max,
-                       dtype=torch.int64, device=y.device)
-    ok_run = torch.ones((B,), dtype=torch.bool, device=y.device)
-    for r0 in range(0, R, chunk):
-        n_c = norms[None, r0 : r0 + chunk]
-        cross = sliding_dot(y[r0 : r0 + chunk], g, n_out).transpose(0, 1)
-        s = distance.score(x_norm2[:, None, None], cross, n_c)
-        s = torch.where(torch.isinf(n_c), float("inf"), s).reshape(B, -1)
-        vals, idx, ok = topk_min_batched(s, min(k, s.shape[1]), cap=cap)
-        d_run, i_run = merge_min(d_run, i_run, vals, idx + r0 * n_out, k)
-        ok_run = ok_run & ok
-    return d_run, i_run, ok_run
-
-
-def _prep_context(x_context: torch.Tensor, raw_kernel: torch.Tensor,
-                  plan_kernel: torch.Tensor):
-    """Context embeddings ``(B, d)``, their squared norms ``(B,)`` and the
-    combined filters ``g (B, C, w')`` over the context-adjusted plan kernel.
-    The context embeds with the same reduction as the rescored winners, so
-    a window equal to the context rescores to exactly 0.0."""
-    with span("psmc.prep"):
-        x_emb = embed_windows(x_context, raw_kernel)
-        x_norm2 = (x_emb * x_emb).sum(dim=-1)
-        with fp32_exact():
-            g = torch.einsum("bd,dcw->bcw", x_emb, plan_kernel)
-    return x_emb, x_norm2, g
-
-
-# --------------------------------------------------------------------------
-# extraction + exact rescore
-# --------------------------------------------------------------------------
-
-def _extract_paths(y: torch.Tensor, flat_idx: torch.Tensor, n_out: int,
-                   w_extract: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dataset windows ``(B, k, C, w_extract)`` at the flat ids, and the
-    ``(trajectory, start)`` pairs ``(B, k, 2)``."""
-    C = y.shape[1]
-    traj = flat_idx // n_out
-    t0 = flat_idx % n_out
-    ch = torch.arange(C, device=y.device)[:, None]
-    pos = t0[..., None, None] + torch.arange(w_extract, device=y.device)
-    paths = y[traj[..., None, None], ch, pos]
-    return paths, torch.stack([traj, t0], dim=-1)
-
-
-def _exact_rescore(x_emb: torch.Tensor, in_paths: torch.Tensor,
-                   kernel: torch.Tensor, distance: PathDistance) -> torch.Tensor:
-    return distance.forward(x_emb[:, None, :], embed_windows(in_paths, kernel))
 
 
 def _aggregate_predictions(distances, paths, to_predict, proba_name, eta,

@@ -23,7 +23,7 @@ from shadowing_tpu_torch.ops.sliding import sliding_dot
 from shadowing_tpu_torch.pricing import black_scholes as port_bs
 from shadowing_tpu_torch.pricing import hedged_mc as port_hmc
 from shadowing_tpu_torch.shadow import embedding as port_embedding
-from shadowing_tpu_torch.shadow import engine as port_engine
+from shadowing_tpu_torch.shadow import routes as port_routes
 
 PKG = Path(P.__file__).resolve().parent
 RTOL = 1e-5
@@ -43,8 +43,7 @@ def close(got, want, rtol=RTOL, atol=0.0):
 def test_port_never_imports_jax_or_the_jax_package():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|shadowing_tpu)(\.|\s|$)",
                          re.M)
-    sources = [*PKG.rglob("*.py"), PKG.parent / "chip_smoke.py",
-               PKG.parent / "chip_ab.py"]
+    sources = [*PKG.rglob("*.py"), PKG.parent / "chip_smoke.py"]
     assert {PKG / "viz" / "plots.py", PKG / "cli" / "make_figures.py",
             PKG / "native" / "__init__.py", PKG / "ops" / "topk.py"
             } <= set(sources)
@@ -76,6 +75,41 @@ def test_port_never_imports_jax_or_the_jax_package():
             "sys.exit(bool(bad))")
     assert subprocess.run([sys.executable, "-c", code],
                           cwd=PKG.parent).returncode == 0
+
+
+def imported_modules(path: Path):
+    """Every module an ``import`` statement of ``path`` names, at any depth
+    (module level or inside a function), relative imports resolved, with
+    each ``from m import n`` also as ``m.n``."""
+    import ast
+
+    package = ".".join(path.relative_to(PKG.parent).with_suffix("").parts)
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = node.module or ""
+            if node.level:
+                parent = package.rsplit(".", node.level)[0]
+                base = f"{parent}.{base}" if base else parent
+            yield base
+            yield from (f"{base}.{a.name}" for a in node.names)
+
+
+def test_the_search_layers_below_the_engine_never_import_it():
+    """The arrows point one way, engine → sharding → routes → ops: no module
+    under ``ops/`` or ``parallel/``, nor ``shadow/routes.py``, imports
+    ``shadowing_tpu_torch.shadow.engine``, even inside a function."""
+    engine = "shadowing_tpu_torch.shadow.engine"
+    below = [*(PKG / "ops").rglob("*.py"), *(PKG / "parallel").rglob("*.py"),
+             PKG / "shadow" / "routes.py"]
+    assert {PKG / "parallel" / "sharding.py", PKG / "ops" / "search.py",
+            PKG / "shadow" / "routes.py"} <= set(below)
+    offenders = [str(p) for p in below
+                 if any(m == engine or m.startswith(engine + ".")
+                        for m in imported_modules(p))]
+    assert not offenders
+    assert engine in set(imported_modules(PKG / "backtest.py"))
 
 
 def test_cuda_device_is_never_replaced_by_the_cpu():
@@ -210,7 +244,7 @@ def test_window_norms(rng, emb, context):
     want = jax_engine._window_norms(jnp.asarray(y), jnp.asarray(kernel),
                                     n_out=n_out, n_splits=3,
                                     identity_fast=diag)
-    got = port_engine._window_norms(t(y), t(kernel), n_out, 3, diag)
+    got = port_routes._window_norms(t(y), t(kernel), n_out, 3, diag)
     close(got, want, atol=1e-9)
     port_emb = P.Identity(16) if diag else P.Foveal(1.2, 0.8, 16)
     eng = P.PathShadowing(port_emb, P.RelativeMSE(), y, ctx_p, device="cpu")

@@ -164,7 +164,7 @@ def mesh_results(mesh) -> dict:
 def mesh_2d(mesh) -> dict:
     """A (2, 2) mesh beside the 1-d mesh of the same 4 ranks: the context
     batch split over ``ctx``, and the engine on it."""
-    from shadowing_tpu_torch.shadow.engine import _prep_context
+    from shadowing_tpu_torch.shadow.routes import _prep_context
 
     m2 = data_ctx_mesh(2, 2, device="cpu")
     ds, ctx, _ = problem(RS[0])

@@ -1,6 +1,7 @@
 """The port's certified tournament selection (``ops/topk.py``) against the
-JAX package's on the same numpy inputs, and the routes that select through
-it — pass 2 and the fused route — against the JAX package as a whole (Pallas
+JAX package's on the same numpy inputs, pass 2's exact ``select_lowest``,
+and the routes that select — pass 2 through ``select_lowest``, the fused
+route through the tournament — against the JAX package as a whole (Pallas
 in interpret mode), after a forced redo and on a 2-rank gloo mesh where only
 one rank fails to certify.
 
@@ -24,7 +25,7 @@ from shadowing_tpu_torch.ops import search as search_ops
 from shadowing_tpu_torch.ops import topk
 from shadowing_tpu_torch.parallel import data_mesh
 from shadowing_tpu_torch.parallel import sharding as psh
-from shadowing_tpu_torch.shadow import engine as port_engine
+from shadowing_tpu_torch.shadow import routes as port_routes
 from shadowing_tpu_torch.utils.profiling import counters
 
 STYLES = ["normal", "ties", "quantized", "infs", "sorted"]
@@ -225,8 +226,8 @@ def test_select_tiles_fill_about_one_wave(B, n, tiles):
 
 def test_selection_counters_count_rows_of_top_level_calls(rng):
     """``select_tournament_rows`` adds a call's rows once, however deep the
-    tournament recurses; pass 2 on CPU tensors selects twice through the
-    tournament and never through the kernel."""
+    tournament recurses; pass 2 on CPU tensors selects through the plain
+    ``select_lowest``, which counts neither tournament nor kernel rows."""
     from test_torch_kernels import make_problem
 
     def delta(fn):
@@ -242,32 +243,31 @@ def test_selection_counters_count_rows_of_top_level_calls(rng):
     y, norms, g, n_out = make_problem(40, 272, 1040, 24, 2)
     assert delta(lambda: search_ops.two_pass_search(t(y), t(norms), t(g),
                                                     40)) == {
-        "select_tournament_rows": 4, "select_kernel_rows": 0}
+        "select_tournament_rows": 0, "select_kernel_rows": 0}
 
 
-# -- pass 2 through the tournament -------------------------------------------
+# -- pass 2's selections -------------------------------------------------------
 
-def widths_selected(monkeypatch):
-    """Record the width of every row the selection sorts: the whole row at
-    the exits that need no certificate, the gathered candidates in the
-    tournament."""
+def selections(monkeypatch):
+    """Record every call of pass 2's ``select_lowest``: its rows, its k and
+    what it returned."""
     seen = []
-    real = topk.topk_min_sort
+    real = search_ops.select_lowest
 
-    def spy(scores, k):
-        seen.append(scores.shape[-1])
-        return real(scores, k)
+    def spy(x, k):
+        ids, thr = real(x, k)
+        seen.append((x, k, ids, thr))
+        return ids, thr
 
-    monkeypatch.setattr(topk, "topk_min_sort", spy)
+    monkeypatch.setattr(search_ops, "select_lowest", spy)
     return seen
 
 
 @pytest.mark.parametrize("k,cap", [(40, 64), (40, None), (300, None)])
-def test_pass2_through_the_tournament_matches_pallas(monkeypatch, k, cap):
-    """3,200 blocks: the final selection takes the tournament (no sort sees
-    all the candidates), and so does the block selection at the small cap
-    (none sees all the block minima); scores, ids and flags equal the JAX
-    two-pass search's."""
+def test_pass2_matches_pallas(monkeypatch, k, cap):
+    """3,200 blocks: pass 2 selects twice through ``select_lowest``, over
+    every block minimum and then over the candidates of the capped blocks;
+    scores, ids and flags equal the JAX two-pass search's."""
     import jax.numpy as jnp
     from test_torch_kernels import make_problem
 
@@ -278,12 +278,11 @@ def test_pass2_through_the_tournament_matches_pallas(monkeypatch, k, cap):
     vj, ij, okj = pallas_search.two_pass_search(
         jnp.asarray(y), jnp.asarray(norms), jnp.asarray(g), k=k, n_out=n_out,
         cap=cap, interpret=True, mxu="highest")
-    seen = widths_selected(monkeypatch)
+    seen = selections(monkeypatch)
     vp, ip, okp = search_ops.two_pass_search(t(y), t(norms), t(g), k, cap)
     n_blocks = R * search_ops.n_blocks(n_out)
     cap_eff = min(max(cap or max(k + 384, 512), -(-k // 128)), n_blocks)
-    assert seen and cap_eff * 128 not in seen
-    assert (n_blocks in seen) == (cap is None)
+    assert [x.shape[1] for x, *_ in seen] == [n_blocks, cap_eff * 128]
     np.testing.assert_array_equal(okp.numpy(), np.asarray(okj))
     assert okp.all()
     np.testing.assert_array_equal(ip.numpy(), np.asarray(ij))
@@ -291,21 +290,41 @@ def test_pass2_through_the_tournament_matches_pallas(monkeypatch, k, cap):
                                atol=1e-6)
 
 
-def test_pass2_joins_the_tournaments_flags(monkeypatch):
-    """A final selection that cannot certify fails pass 2, whatever pass
-    2's own guard says."""
+@pytest.mark.parametrize("cap", [None, 1])
+def test_pass2_selects_twice_and_its_guard_alone_certifies(monkeypatch, cap):
+    """Through K1's and K2's two-pass searches alike: exactly two selections
+    a call, of widths ``R * nblk`` (the block minima) then ``cap * 128`` (the
+    candidates), and ``ok`` is the self-calibrated guard, recomputed here
+    from what the two selections saw. One block (``cap=1``) fails it, as
+    ``test_torch_kernels.py::test_tiny_cap_fails_certification`` expects."""
     from test_torch_kernels import make_problem
 
-    y, norms, g, n_out = make_problem(3, 272, 1040, 24, 2)
-    real = search_ops.topk_min_batched
+    from shadowing_tpu_torch.ops import factored
 
-    def uncertified_final(scores, k, block, cap):
-        v, i, ok = real(scores, k, block=block, cap=cap)
-        return v, i, ok & (k != 40)          # the final selection has k = 40
-
-    monkeypatch.setattr(search_ops, "topk_min_batched", uncertified_final)
-    assert not search_ops.two_pass_search(t(y), t(norms), t(g), 40)[2].any()
-    assert search_ops.two_pass_search(t(y), t(norms), t(g), 41)[2].all()
+    k = 32
+    y, norms, kernel, x_emb, n_out = make_problem(7, 272, 1040, 24, 3, d=24)
+    g = np.einsum("bd,dcw->bcw", x_emb, kernel).astype(np.float32)
+    E = factored.build_factored(t(y), t(kernel), n_out)
+    nb = 272 * search_ops.n_blocks(n_out)
+    cap_eff = cap or 512                  # below nb: mu_cap is finite
+    seen = selections(monkeypatch)
+    for search in (
+            lambda: search_ops.two_pass_search(t(y), t(norms), t(g), k, cap),
+            lambda: factored.two_pass_search_factored(
+                E, t(norms), t(y), t(g), t(x_emb), k, cap)):
+        seen.clear()
+        vals, _, ok = search()
+        assert [(x.shape[1], kk) for x, kk, *_ in seen] == [
+            (nb, cap_eff), (cap_eff * 128, k)]
+        (bmin, _, bidx, mu_cap), (s, *_) = seen
+        mu = torch.gather(bmin, 1, bidx)
+        exact = s.reshape(3, cap_eff, 128).amin(dim=2)
+        err = torch.where(torch.isfinite(mu) & (exact < 1e29),
+                          (mu - exact).abs(), 0.0).amax(dim=1)
+        guard = 2.0 * err + 1e-5 * mu_cap.abs() + 1e-12
+        want = torch.isinf(mu_cap) | (vals[:, -1] + guard < mu_cap)
+        assert torch.equal(ok, want)
+        assert bool(ok.all()) == (cap is None)
 
 
 def test_factored_route_selects_through_the_same_pass2(monkeypatch):
@@ -317,10 +336,11 @@ def test_factored_route_selects_through_the_same_pass2(monkeypatch):
     y, norms, kernel, x_emb, n_out = make_problem(5, 272, 1040, 24, 9, d=24)
     g = np.einsum("bd,dcw->bcw", x_emb, kernel).astype(np.float32)
     E = factored.build_factored(t(y), t(kernel), n_out)
-    seen = widths_selected(monkeypatch)
+    seen = selections(monkeypatch)
     vf, i_f, okf = factored.two_pass_search_factored(
         E, t(norms), t(y), t(g), t(x_emb), 64)
-    assert seen and 512 * 128 not in seen
+    assert [x.shape[1] for x, *_ in seen] == [
+        272 * search_ops.n_blocks(n_out), 512 * 128]
     vt, i_t, okt = search_ops.two_pass_search(t(y), t(norms), t(g), 64)
     assert okf.all() and okt.all()
     np.testing.assert_array_equal(i_f.numpy(), i_t.numpy())
@@ -352,14 +372,14 @@ def test_fused_search_equals_jax_chunk_by_chunk(fused_problem, dist, cap):
     ds, ctx = fused_problem
     n_out = 512 - 20 - H + 1
     kernel = np.eye(20, dtype=np.float32)[:, None, :]
-    norms = port_engine._window_norms(t(ds), t(kernel), n_out, 1, True)
-    x_emb, x_norm2, g = port_engine._prep_context(t(ctx), t(kernel), t(kernel))
+    norms = port_routes._window_norms(t(ds), t(kernel), n_out, 1, True)
+    x_emb, x_norm2, g = port_routes._prep_context(t(ctx), t(kernel), t(kernel))
     # 4 equal chunks of 16 rows: JAX pads no row, so the chunks are the same
     vj, ij, okj = jax_engine._fused_search(
         jnp.asarray(ds), jnp.asarray(norms.numpy()), jnp.asarray(g.numpy()),
         jnp.asarray(x_norm2.numpy()), k=K, n_out=n_out, n_splits=4,
         distance=getattr(J, dist)(), cap=cap)
-    vp, ip, okp = port_engine._fused_search(
+    vp, ip, okp = port_routes._fused_search(
         t(ds), norms, g, x_norm2, K, n_out, 4, getattr(P, dist)(), cap)
     np.testing.assert_array_equal(okp.numpy(), np.asarray(okj))
     assert bool(okp.all()) == (cap is None)
@@ -441,8 +461,8 @@ def one_sided_results(mesh) -> dict:
                           device=None if mesh else "cpu")
     n_out = T1 - W - H + 1
     kernel = torch.eye(W)[:, None, :]
-    _, x_norm2, g = port_engine._prep_context(t(ctx), kernel, kernel)
-    local_ok = port_engine._fused_search(
+    _, x_norm2, g = port_routes._prep_context(t(ctx), kernel, kernel)
+    local_ok = port_routes._fused_search(
         eng.y, eng.window_norms(), g, x_norm2, K, n_out, 1, eng.distance, 2)[2]
     merged_ok = psh.sharded_fused_search(
         eng.y, eng.window_norms(), g, x_norm2, K, n_out, eng.distance,
