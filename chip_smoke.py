@@ -30,7 +30,11 @@ drives the main path at the README workflow scale (32,768 trajectories x
 4. one context: ``predict_and_smile`` on the last 20 daily returns of the
    bundled S&P-like series, checked against the on-card direct oracle;
 5. 64 contexts: ``predict`` through the factored kernel, checked against
-   the Toeplitz kernel's route and the direct oracle;
+   the Toeplitz kernel's route and the direct oracle; then finalize's two
+   gathers on the phase-4 rows at the cells' shapes (B, k, w_extract) =
+   (64, 16,384, 40) with ``Identity(20)`` and (1, 10,000, 378) with
+   ``Foveal(1.15, 0.9, 126)``, each against its plain version, with its
+   bound (bytes; the cells' traces time them);
 6. the redo path: a forced pass-2 certification failure must still
    return the certified winners of phase 4;
 7. the fused route: cosine (Identity(20)) and RelativeMSE over a
@@ -74,13 +78,15 @@ drives the main path at the README workflow scale (32,768 trajectories x
 18. the parallel shard reader against ``numpy.load``: phase 14's dataset
     directory, phase 15's dataset file, and that file cut into 8 shards.
 
-Every check raises on failure. The line before the last is a JSON object
-of the kernels (K1, K2, P2, SL, pass 2's select, and HM, the smile's):
-launch counts summed over
-every path, and per shape the
-error, the times and the bound;
-the last line is ``{"ok": true, "device": {...}}``. Without a CUDA device
-the script exits non-zero and prints no result.
+Every check raises on failure. Every search on one card launches
+finalize's two gathers (GE, ``gather_embed``, and EX, ``extract_windows``),
+counted beside the other kernels in the launches line, the mesh's ranks
+included. The line before the last is a JSON object of the kernels (K1,
+K2, P2, SL, pass 2's select, HM, the smile's, and GE and EX): launch
+counts summed over every path, and per shape the error, the times (none
+for GE and EX) and the bound; the last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA device the script exits non-zero and prints no
+result.
 """
 from __future__ import annotations
 
@@ -117,6 +123,10 @@ SELECT_SHAPES = ((64, 1048576, 16768), (64, 2146304, 16384),
 #: within SMILE_TOL of the spot of the plain float64 version's (the kernel
 #: sums the normal equations in another order)
 SMILE_SHAPE, SMILE_TOL = (1, K, len(MS), 12), 1e-9
+#: phases 4-5: finalize's gathers at the cells' (B, k, bank, horizon): the
+#: backtest at k = 16,384 (40-sample windows), the Foveal query at k =
+#: 10,000 (378-sample windows)
+FINALIZE_SHAPES = ((64, 16384, "identity20", 20), (1, 10000, "foveal126", 252))
 LIBRARY = ("none: no one PyTorch call folds the minimum over each 128-start "
            "block into norms - 2 * cross")
 #: tests/test_fuzz.py's float32 tie window: ids may differ only between
@@ -612,6 +622,68 @@ def smile_vs_plain(device) -> list:
     return res
 
 
+def finalize_vs_plain(y, device) -> list:
+    """Phases 4-5, finalize's gathers at ``FINALIZE_SHAPES`` over the rows
+    ``y`` on the card, on sorted random ids with the first and the last
+    valid start among them: ``gather_embed`` within ``TOL`` of the largest
+    |e| of ``gather_embed_plain`` (the sums run in another order),
+    ``extract_windows`` bit-equal to ``extract_windows_plain``; each one's
+    bound. Not timed here: the cells' traces time both kernels."""
+    import torch
+
+    from shadowing_tpu_torch import Foveal, Identity, PredictionContext
+    from shadowing_tpu_torch.ops import finalize
+    from shadowing_tpu_torch.shadow.routes import _in_positions
+
+    Rn, C, Tn = y.shape
+    gen = torch.Generator(device=device).manual_seed(5)
+    res = []
+    for B, k, emb, h in FINALIZE_SHAPES:
+        bank = Identity(W) if emb == "identity20" else Foveal(1.15, 0.9, 126)
+        kernel = torch.from_numpy(bank.kernel).to(device)
+        d, _, w = kernel.shape
+        w_extract = w + h
+        n_out = Tn - w_extract + 1
+        ids = torch.randint(0, Rn * n_out, (B, k), generator=gen,
+                            device=device)
+        ids[0, 0], ids[-1, -1] = 0, Rn * n_out - 1
+        ids = ids.sort(dim=1).values
+        pos = _in_positions(PredictionContext(h).select_in_context, C,
+                            w_extract, device)
+        e = finalize.gather_embed(y, ids, n_out, pos, kernel)
+        e_want = finalize.gather_embed_plain(y, ids, n_out, pos, kernel)
+        paths = finalize.extract_windows(y, ids, n_out, w_extract)
+        exact = torch.equal(paths, finalize.extract_windows_plain(
+            y, ids, n_out, w_extract))
+        torch.cuda.synchronize()
+        scale = float(e_want.abs().max())
+        err = float((e - e_want).abs().max())
+        label = f"B={B} k={k} {emb} w_extract={w_extract} ({Rn}x{Tn})"
+        if torch.isnan(e).any() or err > TOL * scale or not exact:
+            raise AssertionError(
+                f"finalize {label}: gather_embed error {err:.3e} of "
+                f"{scale:.4g}, extract_windows bit-equal {exact}")
+        # ids read once, each window's C * w input samples or C * w_extract
+        # samples read once, the embeddings or windows written once
+        N = B * k
+        ge = bound(N * (8 + 4 * C * w + 4 * d), 2 * N * d * C * w,
+                   FP32_FLOPS)
+        ex = bound(N * (8 + 8 * C * w_extract), 0, FP32_FLOPS)
+        res.append({
+            "shape": label,
+            "gather_embed": {"max_abs_err": err, "bound_ms": ge[0],
+                             "bound_by": ge[1]},
+            "extract_windows": {"max_abs_err": 0.0, "bound_ms": ex[0],
+                                "bound_by": ex[1]}})
+        log(f"  finalize {label}: gather_embed max_abs_err {err:.3e} = "
+            f"{err / scale:.3e} of max|e| {scale:.4g}, bound "
+            f"{ge[0]:.4f} ms ({ge[1]}); extract_windows bit-equal, bound "
+            f"{ex[0]:.4f} ms ({ex[1]})")
+        del e, e_want, paths, ids
+        torch.cuda.empty_cache()
+    return res
+
+
 def main_path(dataset, device) -> dict:
     """Phases 4-6 through the public API."""
     import torch
@@ -625,6 +697,7 @@ def main_path(dataset, device) -> dict:
         realized_variance,
     )
     from shadowing_tpu_torch.ops.factored import FACTORED
+    from shadowing_tpu_torch.ops.finalize import EXTRACT, GATHER_EMBED
     from shadowing_tpu_torch.ops.search import RESCORE, TOEPLITZ
     from shadowing_tpu_torch.ops.smile import SMILE
     from shadowing_tpu_torch.ops.topk import SELECT
@@ -648,6 +721,7 @@ def main_path(dataset, device) -> dict:
     # ---- phase 4: one context -------------------------------------------
     TOEPLITZ.launches = FACTORED.launches = RESCORE.launches = 0
     SMILE.launches = SELECT.launches = 0
+    GATHER_EMBED.launches = EXTRACT.launches = 0
     t0 = time.perf_counter()
     vars_, _, smiles = e2e()
     torch.cuda.synchronize()
@@ -655,15 +729,17 @@ def main_path(dataset, device) -> dict:
     warm = median_wall(e2e)
     k1_launches, p2_launches = TOEPLITZ.launches, RESCORE.launches
     hm_launches, sl_launches = SMILE.launches, SELECT.launches
+    ge_launches, ex_launches = GATHER_EMBED.launches, EXTRACT.launches
     selects_twice(sl_launches, p2_launches, "phase 4")
     log(f"phase 4 predict_and_smile (B=1, k={K}): first call {first:.3f} s, "
         f"warm median of 5 {warm:.4f} s; K1 launches {k1_launches}, P2 "
-        f"launches {p2_launches}, HM launches {hm_launches}, route "
+        f"launches {p2_launches}, HM launches {hm_launches}, GE launches "
+        f"{ge_launches}, EX launches {ex_launches}, route "
         f"{eng.last_metrics['method']}, contexts redone "
         f"{eng.last_metrics['redo_contexts']}")
-    if k1_launches == 0 or p2_launches == 0 or hm_launches == 0:
+    if 0 in (k1_launches, p2_launches, hm_launches, ge_launches, ex_launches):
         raise AssertionError("the one-context main path never launched K1, "
-                             "P2 or HM")
+                             "P2, HM, GE or EX")
 
     d, p, i = (a.cpu().numpy() for a in eng.shadow_device(ctx, k=K))
     if not (np.diff(d[0]) >= 0).all():
@@ -708,7 +784,7 @@ def main_path(dataset, device) -> dict:
         return eng.predict(ctx64, k=K, to_predict=to_predict, eta=0.1)
 
     TOEPLITZ.launches = FACTORED.launches = RESCORE.launches = 0
-    SELECT.launches = 0
+    SELECT.launches = GATHER_EMBED.launches = EXTRACT.launches = 0
     t0 = time.perf_counter()
     pred, _ = batched()
     torch.cuda.synchronize()
@@ -718,13 +794,18 @@ def main_path(dataset, device) -> dict:
     selects_twice(SELECT.launches, RESCORE.launches, "phase 5")
     p2_launches += RESCORE.launches
     sl_launches += SELECT.launches
+    ge_launches += GATHER_EMBED.launches
+    ex_launches += EXTRACT.launches
     log(f"phase 5 predict (B=64, k={K}): E build {e_build:.3f} s, first call "
         f"{first64:.3f} s, warm median of 5 {warm64:.4f} s; K2 launches "
         f"{k2_launches}, K1 launches {TOEPLITZ.launches}, P2 launches "
-        f"{RESCORE.launches}, contexts redone "
+        f"{RESCORE.launches}, GE launches {GATHER_EMBED.launches}, EX "
+        f"launches {EXTRACT.launches}, contexts redone "
         f"{eng.last_metrics['redo_contexts']}")
-    if k2_launches == 0 or RESCORE.launches == 0:
-        raise AssertionError("the batched main path never launched K2 or P2")
+    if 0 in (k2_launches, RESCORE.launches, GATHER_EMBED.launches,
+             EXTRACT.launches):
+        raise AssertionError("the batched main path never launched K2, P2, "
+                             "GE or EX")
     if not any(s.startswith("factored pass-1 routed") for s in eng.routing_log):
         raise AssertionError(f"no factored grant in {eng.routing_log}")
     redone = [s for s in eng.routing_log if s.startswith("redo")]
@@ -744,6 +825,7 @@ def main_path(dataset, device) -> dict:
         raise AssertionError("K2 route winners differ from the direct oracle")
     log(f"  checks: routing_log grants the factored route, no context redone, "
         f"64x{K} ids equal the K1 route's, 2x{K} ids equal the direct oracle")
+    fin = finalize_vs_plain(eng.y, device)
 
     # ---- phase 6: the redo path -----------------------------------------
     cap = K // 128 // 2
@@ -762,7 +844,8 @@ def main_path(dataset, device) -> dict:
         f"equal phase 4's, P2 launches {RESCORE.launches}; "
         f"{[s for s in eng.routing_log if s.startswith('redo')]}")
     return {"K1": k1_launches, "K2": k2_launches, "P2": p2_launches,
-            "SL": sl_launches, "HM": hm_launches, "e2e_warm_s": warm,
+            "SL": sl_launches, "HM": hm_launches, "GE": ge_launches,
+            "EX": ex_launches, "finalize": fin, "e2e_warm_s": warm,
             "predict64_warm_s": warm64, "e_build_s": e_build,
             # what phase 15 is held to
             "ctx": ctx, "ctx64": ctx64, "ids": i, "pred64": pred,
@@ -810,20 +893,23 @@ def dataset_contexts(dataset, w: int, n: int, seed: int) -> np.ndarray:
 
 
 class Launches:
-    """K1/K2/P2 (pass 2's rescore)/SL (pass 2's select)/HM (the smile's)
-    launch counts of one driven path: zeroed on entry, read on exit, summed
-    over every path into ``totals``."""
+    """K1/K2/P2 (pass 2's rescore)/SL (pass 2's select)/HM (the smile's)/
+    GE and EX (finalize's gather_embed and extract_windows) launch counts of
+    one driven path: zeroed on entry, read on exit, summed over every path
+    into ``totals``."""
 
-    totals = {"K1": 0, "K2": 0, "P2": 0, "SL": 0, "HM": 0}
+    totals = {"K1": 0, "K2": 0, "P2": 0, "SL": 0, "HM": 0, "GE": 0, "EX": 0}
 
     def __enter__(self):
         from shadowing_tpu_torch.ops.factored import FACTORED
+        from shadowing_tpu_torch.ops.finalize import EXTRACT, GATHER_EMBED
         from shadowing_tpu_torch.ops.search import RESCORE, TOEPLITZ
         from shadowing_tpu_torch.ops.smile import SMILE
         from shadowing_tpu_torch.ops.topk import SELECT
 
         self.kernels = {"K1": TOEPLITZ, "K2": FACTORED, "P2": RESCORE,
-                        "SL": SELECT, "HM": SMILE}
+                        "SL": SELECT, "HM": SMILE, "GE": GATHER_EMBED,
+                        "EX": EXTRACT}
         for k in self.kernels.values():
             k.launches = 0
         return self
@@ -839,6 +925,9 @@ class Launches:
             raise AssertionError(f"{what} never launched {name}")
         if name == "P2":
             selects_twice(self.counts["SL"], self.counts["P2"], what)
+        if name in ("K1", "K2"):   # a search on one card ends in finalize
+            for gather in ("GE", "EX"):
+                self.require(gather, what)
 
 
 def selects_twice(sl: int, p2: int, what: str) -> None:
@@ -876,7 +965,12 @@ def fused_route(dataset, device) -> None:
             with Launches() as ran:
                 (d, _, i), first, warm = first_and_warm(
                     lambda: eng.shadow(ctx64[-B:], k=K))
-            if eng.last_metrics["method"] != "fused" or any(ran.counts.values()):
+            # no search kernel runs on the fused route; its finalize
+            # launches the two gathers
+            searched = [n for n in ("K1", "K2", "P2", "SL", "HM")
+                        if ran.counts[n]]
+            if (eng.last_metrics["method"] != "fused" or searched
+                    or not (ran.counts["GE"] and ran.counts["EX"])):
                 raise AssertionError(f"{label} B={B}: {eng.last_metrics}, "
                                      f"launches {ran.counts}")
             log(f"phase 7 fused {label} (d={emb.dim}) B={B}, k={K}: first "
@@ -1551,6 +1645,7 @@ def mesh_worker(out: Path, device: str) -> None:
     from shadowing_tpu_torch.models.scattering import build_filter_bank
     from shadowing_tpu_torch.models.scattering.synthesis import synthesize_batch
     from shadowing_tpu_torch.ops.factored import FACTORED
+    from shadowing_tpu_torch.ops.finalize import EXTRACT, GATHER_EMBED
     from shadowing_tpu_torch.ops.search import RESCORE, TOEPLITZ
     from shadowing_tpu_torch.ops.smile import SMILE
     from shadowing_tpu_torch.ops.topk import SELECT
@@ -1582,11 +1677,13 @@ def mesh_worker(out: Path, device: str) -> None:
         """The counts zeroed before one driven path and read after it."""
         TOEPLITZ.launches = FACTORED.launches = RESCORE.launches = 0
         SMILE.launches = SELECT.launches = 0
+        GATHER_EMBED.launches = EXTRACT.launches = 0
         res, first, warm = first_and_warm(fn, 5)
         info[name] = {"first_s": first, "warm_s": warm,
                       "K1": TOEPLITZ.launches, "K2": FACTORED.launches,
                       "P2": RESCORE.launches, "SL": SELECT.launches,
-                      "HM": SMILE.launches}
+                      "HM": SMILE.launches, "GE": GATHER_EMBED.launches,
+                      "EX": EXTRACT.launches}
         return res
 
     ctx, ctx64 = inp["ctx"], inp["ctx64"]
@@ -1697,8 +1794,11 @@ def mesh_phase(path: dict, device) -> dict:
                                      f"0 in {name}")
         if info["task_split"] != [MESH_RANKS, r]:
             raise AssertionError(f"rank {r}: task_split {info['task_split']}")
+        # the mesh's finalize embeds the context and the summed windows
+        # through GE and cuts each rank's windows through EX
         for tag, kernel in (("k1", "K1"), ("k1", "P2"), ("k1", "HM"),
-                            ("k2", "K2"), ("k2", "P2")):
+                            ("k2", "K2"), ("k2", "P2"), ("k1", "GE"),
+                            ("k1", "EX"), ("k2", "GE"), ("k2", "EX")):
             if info[tag][kernel] == 0:
                 raise AssertionError(f"rank {r}: the mesh path {tag} never "
                                      f"launched {kernel}")
@@ -1739,7 +1839,7 @@ def mesh_phase(path: dict, device) -> dict:
         f"{info0['device']} ({info0['backend']}), rows {[i['rows'] for i, _ in ranks]}"
         f" of {R} read from disk; launch {wall:.1f} s (references "
         f"{t_ref:.1f} s before it); launches by rank "
-        f"{[{n: {t: i[n][t] for t in ('K1', 'K2', 'P2', 'HM')} for n in ('k1', 'k2')} for i, _ in ranks]}")
+        f"{[{n: {t: i[n][t] for t in ('K1', 'K2', 'P2', 'HM', 'GE', 'EX')} for n in ('k1', 'k2')} for i, _ in ranks]}")
     for name, label, single in (("k1", f"predict_and_smile B=1, k={K}",
                                  path["e2e_warm_s"]),
                                 ("k2", f"predict B=64, k={K}",
@@ -1762,7 +1862,7 @@ def mesh_phase(path: dict, device) -> dict:
     log(f"  checks: ranks agree; {'; '.join(checks)}; task_split = "
         f"({MESH_RANKS}, rank)")
     return {t: sum(i[n][t] for i, _ in ranks for n in ("k1", "k2"))
-            for t in ("K1", "K2", "P2", "SL", "HM")}
+            for t in ("K1", "K2", "P2", "SL", "HM", "GE", "EX")}
 
 
 # --------------------------------------------------------------------------
@@ -2007,10 +2107,10 @@ def main() -> int:
     reference_cell(device, card)
     shard_reader(device)
     launches = {n: path[n] + Launches.totals[n] + mesh[n]
-                for n in ("K1", "K2", "P2", "SL", "HM")}
-    log(f"launches over every path: {launches} (phases 4-6 {path['K1']} K1, "
-        f"{path['K2']} K2, {path['P2']} P2, {path['SL']} SL, {path['HM']} HM;"
-        f" phases 7-14 and 16-17 {Launches.totals}; phase 15 {mesh})")
+                for n in Launches.totals}
+    log(f"launches over every path: {launches} (phases 4-6 "
+        f"{ {n: path[n] for n in Launches.totals} }; phases 7-14 and 16-17 "
+        f"{Launches.totals}; phase 15 {mesh})")
     kernels = []
     for name, tag, source, replaces in (
             ("blockmin_toeplitz", "K1",
@@ -2051,6 +2151,17 @@ def main() -> int:
                                     "bound_ms", "bound_by")},
         "library_ms": None, "library": "none: no one PyTorch call runs a "
         "backward regression", "shapes": smile})
+    for name, tag in (("gather_embed", "GE"), ("extract_windows", "EX")):
+        shapes = [{"shape": f["shape"], **f[name]} for f in path["finalize"]]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "shadowing_tpu_torch/csrc/finalize_gather.cu",
+            "replaces": None, "launches": launches[tag],
+            **{k: shapes[0][k] for k in ("max_abs_err", "bound_ms",
+                                         "bound_by")},
+            "ms": None, "plain_ms": None, "library_ms": None,
+            "library": "none: no PyTorch call gathers by flat id without an "
+            "index tensor", "shapes": shapes})
     log(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -35,6 +35,7 @@ import torch.distributed as dist
 from shadowing_tpu_torch.array_types import Array, dim_bct, fp32_exact
 from shadowing_tpu_torch.ops import factored as factored_ops
 from shadowing_tpu_torch.ops import search as search_ops
+from shadowing_tpu_torch.ops.finalize import extract_windows, gather_embed
 from shadowing_tpu_torch.ops.topk import topk_min_sort
 from shadowing_tpu_torch.parallel.multihost import (
     host_row_range,
@@ -45,8 +46,8 @@ from shadowing_tpu_torch.parallel.multihost import (
 from shadowing_tpu_torch.shadow.routes import (
     _direct_search,
     _exact_rescore,
-    _extract_paths,
     _fused_search,
+    _in_positions,
     _window_norms,
 )
 from shadowing_tpu_torch.utils.profiling import span
@@ -354,31 +355,46 @@ def sharded_fused_search_2d(
 def sharded_extract(y: torch.Tensor, flat_idx: torch.Tensor, n_out: int,
                     w_extract: int, mesh: Mesh):
     """Winner windows ``(B, k, C, w_extract)`` and ``(trajectory, start)``
-    pairs on every rank: each rank cuts the winners whose row it owns and
-    contributes zeros elsewhere; one ``all_reduce`` sums them, exactly,
-    since only the owner contributes."""
-    if mesh.n_data == 1:
-        return _extract_paths(y, flat_idx, n_out, w_extract)
+    pairs on every rank of a mesh with ``n_data > 1``: each rank cuts the
+    winners whose row it owns (:func:`extract_windows` at their rank-local
+    ids) and contributes zeros elsewhere; one ``all_reduce`` sums them,
+    exactly, since only the owner contributes."""
     r_loc = y.shape[0]
     traj, t0 = flat_idx // n_out, flat_idx % n_out
     ltraj = traj - mesh.data_pos * r_loc
     own = (ltraj >= 0) & (ltraj < r_loc)
-    paths, _ = _extract_paths(y, ltraj.clamp(0, r_loc - 1) * n_out + t0,
-                              n_out, w_extract)
+    paths = extract_windows(y, ltraj.clamp(0, r_loc - 1) * n_out + t0, n_out,
+                            w_extract)
     paths = torch.where(own[..., None, None], paths, 0.0)
     return mesh.all_reduce(paths), torch.stack([traj, t0], dim=-1)
 
 
 def sharded_finalize_shadow(y, flat_idx, x_emb, kernel, n_out, w_extract,
                             distance, select_in, mesh: Mesh):
-    """Sharded extraction, then the exact rescore and the stable ascending
-    sort on every rank alike: ``(dists, paths, idces)``.
+    """The winners' exact rescore and the stable ascending sort, the same on
+    every rank: ``(dists, paths, idces)``.
 
     ``flat_idx`` is sorted first so the stable sort yields the canonical
     (distance, flat id) order: every route returns the same winner order
-    even when distinct windows tie in f32 distance."""
+    even when distinct windows tie in f32 distance. On one rank the winners
+    are read out of ``y`` by id: their input windows embedded where they lie
+    (:func:`~shadowing_tpu_torch.ops.finalize.gather_embed`), and after the
+    sort each whole window copied once in its final order
+    (:func:`~shadowing_tpu_torch.ops.finalize.extract_windows`). Across
+    ranks the windows are extracted and summed over the mesh first
+    (:func:`sharded_extract`), then embedded with ``embed_windows``, the
+    same reduction."""
     with span("psmc.finalize"):
         flat_idx = torch.sort(flat_idx, dim=-1).values
+        if mesh.n_data == 1:
+            in_pos = _in_positions(select_in, y.shape[1], w_extract, y.device)
+            e = gather_embed(y, flat_idx, n_out, in_pos, kernel)
+            dists, order = torch.sort(distance.forward(x_emb[:, None, :], e),
+                                      dim=-1, stable=True)
+            flat_idx = torch.gather(flat_idx, 1, order)
+            paths = extract_windows(y, flat_idx, n_out, w_extract)
+            idces = torch.stack([flat_idx // n_out, flat_idx % n_out], dim=-1)
+            return dists, paths, idces
         paths, idces = sharded_extract(y, flat_idx, n_out, w_extract, mesh)
         dists = _exact_rescore(x_emb, select_in(paths), kernel, distance)
         dists, order = torch.sort(dists, dim=-1, stable=True)

@@ -7,7 +7,9 @@ one float32 ``F.conv1d`` (cross-correlation, no padding).
 
 * :class:`PathEmbedding` — generic kernel bank, ``embed()`` applies it;
 * :class:`Identity` — windows embed to themselves (``is_identity``);
-* :class:`Foveal` — multiscale power-law suffix averages.
+* :class:`Foveal` — multiscale power-law suffix averages;
+* :func:`embed_windows` — whole windows, one vector each (defined beside
+  its kernel in :mod:`shadowing_tpu_torch.ops.finalize`).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from shadowing_tpu_torch.array_types import Array, as_torch_f32, dim_bct, fp32_exact
+from shadowing_tpu_torch.ops.finalize import embed_windows  # noqa: F401
 
 
 def conv_embed(x: Array, kernel: Array) -> torch.Tensor:
@@ -28,17 +31,6 @@ def conv_embed(x: Array, kernel: Array) -> torch.Tensor:
     with fp32_exact():
         out = F.conv1d(x, kernel)                          # (B, d, T')
     return out.transpose(1, 2)
-
-
-def embed_windows(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Embed whole windows ``(..., C, w) -> (..., d)`` with an elementwise
-    product and a sum over ``(C, w)``.
-
-    Every window is reduced in the same order whatever its position in the
-    batch, so equal windows embed to bit-equal vectors: the context and a
-    dataset window equal to it rescore to a distance of exactly 0.0, and
-    duplicated windows tie exactly."""
-    return (x.unsqueeze(-3) * kernel).sum(dim=(-2, -1))
 
 
 class PathEmbedding:

@@ -2,7 +2,8 @@
 
 Window norms, the context's embedding and combined filters, the literal
 ``"direct"`` oracle, the fused route's chunk loop, the extraction of the
-winners' windows and their exact rescore. The mesh
+winners' windows, the positions of a window's input samples and the
+winners' exact rescore. The mesh
 (:mod:`shadowing_tpu_torch.parallel.sharding`) runs them on each rank's
 shard; the engine (:mod:`shadowing_tpu_torch.shadow.engine`) prepares
 its contexts here and reaches the rest through the mesh, a mesh of one
@@ -10,11 +11,13 @@ without one. Nothing here imports either.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from shadowing_tpu_torch.array_types import fp32_exact
+from shadowing_tpu_torch.ops.finalize import embed_windows
 from shadowing_tpu_torch.ops.sliding import sliding_dot
 from shadowing_tpu_torch.ops.topk import (
     merge_min,
@@ -22,7 +25,6 @@ from shadowing_tpu_torch.ops.topk import (
     topk_min_sort,
 )
 from shadowing_tpu_torch.shadow.distance import PathDistance
-from shadowing_tpu_torch.shadow.embedding import embed_windows
 from shadowing_tpu_torch.utils.profiling import span
 
 
@@ -133,7 +135,10 @@ def _prep_context(x_context: torch.Tensor, raw_kernel: torch.Tensor,
 def _extract_paths(y: torch.Tensor, flat_idx: torch.Tensor, n_out: int,
                    w_extract: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Dataset windows ``(B, k, C, w_extract)`` at the flat ids, and the
-    ``(trajectory, start)`` pairs ``(B, k, 2)``."""
+    ``(trajectory, start)`` pairs ``(B, k, 2)``, by advanced indexing as the
+    JAX package extracts them: the reference that the tests hold
+    :func:`~shadowing_tpu_torch.ops.finalize.extract_windows` to. Finalize
+    itself extracts through ``extract_windows``."""
     C = y.shape[1]
     traj = flat_idx // n_out
     t0 = flat_idx % n_out
@@ -141,6 +146,19 @@ def _extract_paths(y: torch.Tensor, flat_idx: torch.Tensor, n_out: int,
     pos = t0[..., None, None] + torch.arange(w_extract, device=y.device)
     paths = y[traj[..., None, None], ch, pos]
     return paths, torch.stack([traj, t0], dim=-1)
+
+
+@functools.lru_cache(maxsize=64)
+def _in_positions(select_in, C: int, w_extract: int,
+                  device) -> torch.Tensor:
+    """int64 positions ``(w,)`` of the input samples inside an extracted
+    window: ``select_in`` of the positions themselves. They carry a channel
+    axis of ``C`` rows, so a context that selects channels keeps its first
+    rows and one that selects samples (a horizon, a portion) keeps its
+    positions. Kept per (context, C, w_extract, device), since every
+    finalize asks again; callers only read the tensor."""
+    pos = torch.arange(w_extract, device=device).expand(C, w_extract)
+    return select_in(pos)[0].contiguous()
 
 
 def _exact_rescore(x_emb: torch.Tensor, in_paths: torch.Tensor,

@@ -508,8 +508,14 @@ def test_wrappers_raise_instead_of_falling_back(cuda):
     with pytest.raises(ValueError, match="MAX_DIM"):
         factored.score_blockmin_factored(E, norms[:, :256].contiguous(),
                                          torch.zeros((1, 49), device=cuda))
-    from shadowing_tpu_torch.ops import smile
+    from shadowing_tpu_torch.ops import finalize, smile
 
+    ids = torch.zeros((2, 3), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError, match="is on cpu"):
+        finalize.gather_embed(y, ids.cpu(), 200, torch.arange(20, device=cuda),
+                              torch.zeros((20, 1, 20), device=cuda))
+    with pytest.raises(ValueError, match="is on cpu"):
+        finalize.extract_windows(y, ids.cpu(), 200, 40)
     paths, w, K, knots = smile_problem(cuda, 1, 64, [5], 3, 12, False)
     with pytest.raises(ValueError, match="no hedged_mc_smile kernel"):
         smile.hedged_mc_smile(paths.cpu(), w.cpu(), K.cpu(), knots.cpu(), [5],
@@ -595,6 +601,166 @@ def test_kernel_launches_are_the_counter_store(cuda):
         assert kernel.launches == after[key]
         assert after[key] > before.get(key, 0)
     assert after["searches"] - before.get("searches", 0) == 2
+
+
+# ---- finalize's gathers (csrc/finalize_gather.cu) -------------------------
+
+def finalize_problem(cuda, R, C, T, w_extract, B, k, seed=0):
+    """Trajectories and ``(B, k)`` sorted flat ids on the card, the last
+    valid start of the last row and the first start of row 0 among them."""
+    rng = np.random.default_rng(seed)
+    y = torch.from_numpy(rng.normal(0, 0.011, size=(R, C, T)).astype(np.float32))
+    n_out = T - w_extract + 1
+    ids = np.sort(rng.integers(0, R * n_out, size=(B, k)), axis=1)
+    ids[0, 0], ids[-1, -1] = 0, R * n_out - 1
+    return y.to(cuda), torch.from_numpy(ids).to(cuda), n_out
+
+
+def bank(spec, C, seed=0):
+    from shadowing_tpu_torch import Foveal, Identity
+
+    if spec == "identity20":
+        return torch.from_numpy(Identity(20).kernel)
+    if spec == "foveal126":
+        return torch.from_numpy(Foveal(1.15, 0.9, 126).kernel)
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.normal(size=spec).astype(np.float32))
+
+
+def bank_staged(d, C, w):
+    """Whether ``csrc/finalize_gather.cu``'s ``make_plan`` stages a ``(d, C,
+    w)`` bank in shared memory: 8 warps' ids, starts and tiles of 32 rows
+    of max(32, dt) + 1 floats, and the bank with d padded to dt sums, within
+    227 KiB."""
+    dt = 8 if d <= 8 else 24 if d <= 24 else 40
+    fixed = 8 * 32 * (8 + 4 + 4 * (max(32, dt) + 1))
+    return fixed + 4 * C * w * (-(-d // dt) * dt) <= 227 * 1024
+
+
+@pytest.mark.parametrize("R,C,T,w_extract,ctx,spec,B,k", [
+    # the cells: k = 16,384 backtest chunk, rows cut to 4,096; the Foveal
+    # query at k = 10,000
+    (4096, 1, 4096, 40, ("horizon", 20), "identity20", 64, 16384),
+    (4096, 1, 4096, 378, ("horizon", 252), "foveal126", 1, 10000),
+    # three channels; a portion context's two pieces; a context of channels
+    (50, 3, 700, 30, ("horizon", 10), (17, 3, 20), 3, 301),
+    (50, 1, 700, 30, ("portion", (10, 6, 14)), (9, 1, 24), 2, 77),
+    (50, 2, 700, 20, ("channels", 1), (5, 1, 20), 2, 33),
+    # a bank too large for shared memory, in two passes over d; one tap
+    (40, 3, 900, 300, ("horizon", None), (48, 3, 300), 2, 100),
+    (20, 1, 100, 1, ("horizon", None), (1, 1, 1), 1, 5),
+    # 33 taps (two staging chunks), d = 41 (two passes of 40 sums)
+    (30, 1, 300, 53, ("horizon", 20), (41, 1, 33), 3, 1000),
+], ids=["k16384", "foveal126", "three-channels", "portion", "channels",
+        "bank-past-shared-memory", "one-tap", "two-chunks-two-passes"])
+def test_finalize_gathers_equal_the_plain_versions(cuda, R, C, T, w_extract,
+                                                   ctx, spec, B, k):
+    """``gather_embed`` equals its plain version within 1e-5 of the largest
+    |e| (the sums run in another order), ``extract_windows`` equals
+    ``_extract_paths`` bit for bit."""
+    import shadowing_tpu_torch as P
+    from shadowing_tpu_torch.ops import finalize
+    from shadowing_tpu_torch.shadow.routes import _extract_paths, _in_positions
+
+    kind, arg = ctx
+    context = {"horizon": P.PredictionContext, "portion": P.ImputationContext,
+               "channels": P.CrossChannelContext}[kind](arg)
+    y, ids, n_out = finalize_problem(cuda, R, C, T, w_extract, B, k, seed=k)
+    kernel = bank(spec, C, seed=C).to(cuda)
+    pos = _in_positions(context.select_in_context, C, w_extract, cuda)
+    e = finalize.gather_embed(y, ids, n_out, pos, kernel)
+    want = finalize.gather_embed(y.cpu(), ids.cpu(), n_out, pos.cpu(),
+                                 kernel.cpu())
+    torch.cuda.synchronize()
+    assert not torch.isnan(e).any()
+    scale = want.abs().max()
+    assert ((e.cpu() - want).abs().max() <= 1e-5 * scale).item()
+    assert bank_staged(*kernel.shape) == (spec != (48, 3, 300))
+    paths = finalize.extract_windows(y, ids, n_out, w_extract)
+    assert torch.equal(paths, _extract_paths(y, ids, n_out, w_extract)[0])
+
+
+@pytest.mark.parametrize("spec,C,ctx_w,h", [
+    ("identity20", 1, 20, 20), ("foveal126", 1, 126, 252),
+    ((6, 2, 31), 2, 31, 5),
+])
+def test_a_window_embeds_bit_equal_alone_and_at_its_id(cuda, spec, C, ctx_w,
+                                                        h):
+    """``embed_windows`` of a window (the context's path through
+    ``_prep_context``) and ``gather_embed`` at that window's id give
+    bit-equal vectors, so a context equal to a winner rescores to exactly
+    0.0; a window repeated in another row and start embeds bit-equal."""
+    from shadowing_tpu_torch.ops import finalize
+
+    y, ids, n_out = finalize_problem(cuda, 40, C, 900, ctx_w + h, 2, 500)
+    y[7, :, 300:] = y[3, :, 111 : 900 - 189]
+    ids[1, :2] = torch.tensor([3 * n_out + 150, 7 * n_out + 339])
+    kernel = bank(spec, C).to(cuda)
+    pos = torch.arange(ctx_w, device=cuda)
+    e = finalize.gather_embed(y, ids, n_out, pos, kernel)
+    r, t0 = ids // n_out, ids % n_out
+    windows = torch.stack([y[i, :, j : j + ctx_w] for i, j in
+                           zip(r.flatten().tolist(), t0.flatten().tolist())])
+    alone = finalize.embed_windows(windows, kernel).reshape(e.shape)
+    assert torch.equal(alone, e)
+    assert torch.equal(e[1, 0], e[1, 1])
+
+
+def test_finalize_launches_each_gather_once(cuda):
+    """A single-rank finalize launches ``gather_embed`` and
+    ``extract_windows`` once each; its answer agrees with the CPU's up to
+    float32 ties."""
+    import shadowing_tpu_torch as P
+    from shadowing_tpu_torch.ops import finalize
+    from shadowing_tpu_torch.parallel.sharding import (
+        local_mesh,
+        sharded_finalize_shadow,
+    )
+
+    y, ids, n_out = finalize_problem(cuda, 300, 1, 700, 40, 4, 1024)
+    kernel = bank("identity20", 1).to(cuda)
+    x = y[[5, 9, 11, 17], :, 30:50]
+    x_emb = finalize.embed_windows(x, kernel)
+    args = (ids, x_emb, kernel, n_out, 40, P.RelativeMSE(),
+            P.PredictionContext(20).select_in_context)
+    before = (finalize.GATHER_EMBED.launches, finalize.EXTRACT.launches)
+    d, p, i = sharded_finalize_shadow(y, *args, local_mesh(cuda))
+    assert (finalize.GATHER_EMBED.launches, finalize.EXTRACT.launches) == (
+        before[0] + 1, before[1] + 1)
+    d_c, p_c, i_c = sharded_finalize_shadow(
+        y.cpu(), *(a.cpu() if torch.is_tensor(a) else a for a in args),
+        local_mesh("cpu"))
+    assert agree_up_to_ties(d.cpu().numpy(), i.cpu().numpy(), d_c.numpy(),
+                            i_c.numpy())
+    torch.testing.assert_close(d.cpu(), d_c, rtol=1e-5, atol=1e-6)
+    r, t0 = i[..., 0].flatten().tolist(), i[..., 1].flatten().tolist()
+    assert torch.equal(p.reshape(-1, 1, 40), torch.stack(
+        [y[a, :, b : b + 40] for a, b in zip(r, t0)]))
+
+
+@pytest.mark.parametrize("emb", ["identity20", "foveal126"])
+def test_card_engine_agrees_with_the_cpu_engine(cuda, emb):
+    """The card's ``(dists, paths, idces)`` are the CPU engine's up to
+    float32 ties; the paths are the dataset's slices at the returned ids."""
+    import shadowing_tpu_torch as P
+
+    rng = np.random.default_rng(6)
+    ds = rng.normal(0, 0.011, size=(200, 1, 1200)).astype(np.float32)
+    emb, h = ((P.Identity(20), 20) if emb == "identity20"
+              else (P.Foveal(1.15, 0.9, 126), 252))
+    w = emb.width
+    ctx = np.concatenate([ds[[3, 8], :, 100 : 100 + w],
+                          rng.normal(0, 0.011, size=(2, 1, w))]
+                         ).astype(np.float32)
+    out = [P.PathShadowing(emb, P.RelativeMSE(), ds, P.PredictionContext(h),
+                           device=dev).shadow(ctx, k=500)
+           for dev in (cuda, "cpu")]
+    (d, p, i), (d_c, _, i_c) = out
+    assert agree_up_to_ties(d, i, d_c, i_c)
+    np.testing.assert_allclose(d, d_c, rtol=1e-5, atol=1e-6)
+    assert (d[:2, 0] == 0.0).all()
+    np.testing.assert_array_equal(p, np.stack(
+        [[ds[r, :, t : t + w + h] for r, t in row] for row in i]))
 
 
 def mesh_problem():

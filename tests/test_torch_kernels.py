@@ -12,7 +12,7 @@ import torch
 
 from shadowing_tpu.ops import pallas_factored, pallas_search
 from shadowing_tpu.ops.sliding import sliding_dot as jax_sliding_dot
-from shadowing_tpu_torch.ops import factored, search
+from shadowing_tpu_torch.ops import factored, finalize, search
 
 L = 128
 
@@ -143,6 +143,18 @@ def test_wrappers_check_inputs():
     E = torch.zeros((8, 3, 2 * L))
     with pytest.raises(ValueError, match="shape mismatch"):
         factored.score_blockmin_factored(E, t(norms), torch.zeros((2, 4)))
+    ids, pos, bank = torch.zeros((2, 5), dtype=torch.int64), torch.arange(20), \
+        torch.zeros((20, 1, 20))
+    with pytest.raises(ValueError, match="contiguous int64"):
+        finalize.gather_embed(t(y), ids.int(), n_out, pos, bank)
+    with pytest.raises(ValueError, match="contiguous int64"):
+        finalize.extract_windows(t(y), ids.T, n_out, 20)
+    with pytest.raises(ValueError, match="shape mismatch"):   # w != len(pos)
+        finalize.gather_embed(t(y), ids, n_out, pos[:19], bank)
+    with pytest.raises(ValueError, match="shape mismatch"):   # C > src's
+        finalize.gather_embed(t(y), ids, n_out, pos, torch.zeros((20, 2, 20)))
+    with pytest.raises(ValueError, match="shape mismatch"):   # past T
+        finalize.extract_windows(t(y), ids, n_out, 21)
 
 
 def test_wrappers_never_fall_back_off_the_cpu():
@@ -157,6 +169,14 @@ def test_wrappers_never_fall_back_off_the_cpu():
         factored.score_blockmin_factored(torch.empty((4, 3, 384), **meta),
                                          torch.empty((4, 300), **meta),
                                          torch.empty((2, 3), **meta))
+    y, ids = torch.empty((4, 1, 300), **meta), torch.empty(
+        (1, 8), dtype=torch.int64, **meta)
+    with pytest.raises(ValueError, match="no gather_embed kernel"):
+        finalize.gather_embed(y, ids, 261, torch.empty(20, dtype=torch.int64,
+                                                       **meta),
+                              torch.empty((20, 1, 20), **meta))
+    with pytest.raises(ValueError, match="no extract_windows kernel"):
+        finalize.extract_windows(y, ids, 261, 40)
 
 
 def test_e_bytes():
