@@ -6,6 +6,14 @@ Everything a cell is made of is found by name: its entry in
 ``entries/<entry>.py``, ``limits/<cell>.json``, and one reader per metric
 in ``end_to_end/<name>.py`` and ``metrics/<name>.py``. A later cell, mix,
 entry or metric adds files; nothing here names one.
+
+An entry brings its own system where it defines the optional hooks
+``program_system``, ``oracle_system``, ``work``, ``layer_units`` and
+``trace_input`` (``entries/__init__.py``); without them a cell is a search:
+the port's engine on the configuration's dataset, the plain search
+reference, and pass 1's work (:func:`program_system`, :func:`oracle_system`,
+:func:`layer_work`). A system's ``shape``, ``after_call()``, ``launches()``
+and ``close()`` are optional too.
 """
 from __future__ import annotations
 
@@ -138,20 +146,58 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def _call(cell: Cell, system, x):
-    if isinstance(system, Program):
-        out = cell.entry.program(system, x)
-    else:
-        out = cell.entry.oracle(system, x)
-    system.after_call()
+def program_system(cell: Cell, seed: int, device):
+    """The system under test: the entry's ``program_system(config,
+    traffic, seed, device)``, else the port's engine on the configuration's
+    dataset made from the seed."""
+    hook = getattr(cell.entry, "program_system", None)
+    if hook is not None:
+        return hook(cell.config, cell.traffic, seed, device)
+    data = datagen.dataset(cell.config["dataset"], seed, device)
+    return Program(cell.config, cell.traffic, data, device)
+
+
+def oracle_system(cell: Cell, seed: int, device, arith):
+    """The plain reference in ``arith``: the entry's ``oracle_system(config,
+    traffic, seed, device, arith)``, else the search reference on the same
+    dataset made again from the seed."""
+    hook = getattr(cell.entry, "oracle_system", None)
+    if hook is not None:
+        return hook(cell.config, cell.traffic, seed, device, arith)
+    data = datagen.dataset(cell.config["dataset"], seed, device)
+    return Oracle(cell.config, cell.traffic, data, arith)
+
+
+def layer_work(cell: Cell, shape):
+    """``(bytes, flops)`` of the measured layer per unit, or ``None``: the
+    entry's ``work(config, traffic, shape)``, else one pass-1 search of
+    the entry's contexts over a dataset of ``shape`` where the entry has
+    ``contexts_per_search``, else ``None``."""
+    hook = getattr(cell.entry, "work", None)
+    if hook is not None:
+        return hook(cell.config, cell.traffic, shape)
+    if not hasattr(cell.entry, "contexts_per_search"):
+        return None
+    cfg = cell.config
+    d, C, w = search.embedding_kernel(cfg["embedding"]).shape
+    R, _, T = shape
+    return work.pass1(R, C, T, T - w - int(cfg["horizon"]) + 1,
+                      cell.entry.contexts_per_search(cell.traffic), w, d)
+
+
+def _call(cell: Cell, system, x, control: bool = False):
+    out = (cell.entry.oracle if control else cell.entry.program)(system, x)
+    after = getattr(system, "after_call", None)
+    if after is not None:
+        after()
     return out
 
 
 def window(cell: Cell, system, mix, seconds: float, device, setup_s: float,
-           min_calls: int = 1) -> Window:
+           min_calls: int = 1, control: bool = False) -> Window:
     """Closed loop, one caller: calls until ``seconds`` have passed and
     ``min_calls`` were made (the last call ends the window). A call that
-    raises counts as failed."""
+    raises counts as failed. ``control``: the system is the reference."""
     win = Window(setup_s=setup_s)
     t0 = time.perf_counter()
     i = 0
@@ -161,7 +207,7 @@ def window(cell: Cell, system, mix, seconds: float, device, setup_s: float,
         win.attempted += mix.units_per_call
         t = time.perf_counter()
         try:
-            out = _call(cell, system, x)
+            out = _call(cell, system, x, control)
             sync(device)
         except Exception:       # the loop goes on; the run reads not correct
             win.failed += mix.units_per_call
@@ -178,28 +224,42 @@ def window(cell: Cell, system, mix, seconds: float, device, setup_s: float,
     return win
 
 
-def traced(cell: Cell, system, mix, win: Window, data_shape: tuple,
-           device) -> trace.Reading:
+def traced(cell: Cell, system, mix, win: Window, device) -> trace.Reading:
     """Profile ``trace_calls`` calls after the window, with the layer's
-    work and the window's seconds per unit beside them."""
+    work and the untraced seconds per unit beside them. The calls take the
+    mix's next inputs, and the untraced seconds are the window's; or they
+    take the entry's ``trace_input(mix, i)``, and the same calls run once
+    untraced just before the profile give the untraced seconds. The units
+    are ``trace_units``'s, or what the entry's ``layer_units(outputs)``
+    counts in the calls."""
     calls, per_call = cell.entry.trace_units(cell.traffic)
     n_done = len(win.inputs) + win.failed // mix.units_per_call
+    pick = getattr(cell.entry, "trace_input", None)
+    count = getattr(cell.entry, "layer_units", None)
 
-    def segment():
+    def segment(outs: list):
         for j in range(calls):
-            _call(cell, system, mix.inputs(n_done + j))
+            x = pick(mix, n_done + j) if pick else mix.inputs(n_done + j)
+            outs.append(_call(cell, system, x))
 
-    (ops, host), window_s = trace.profile(segment)
-    cfg = cell.config
-    kernel = search.embedding_kernel(cfg["embedding"])
-    d, C, w = kernel.shape
-    R, _, T = data_shape
-    nbytes, flops = work.pass1(R, C, T, T - w - int(cfg["horizon"]) + 1,
-                               cell.entry.contexts_per_search(cell.traffic), w, d)
-    units_window = win.units * per_call / mix.units_per_call
+    def units(outs: list, n_calls: float) -> float:
+        return count(outs) if count is not None else n_calls * per_call
+
+    if pick is not None:
+        plain = []
+        t = time.perf_counter()
+        segment(plain)
+        sync(device)
+        untraced_s_per_unit = (time.perf_counter() - t) / units(plain, calls)
+    else:
+        untraced_s_per_unit = win.elapsed_s / units(
+            win.outputs, win.units / mix.units_per_call)
+    outs = []
+    (ops, host), window_s = trace.profile(lambda: segment(outs))
+    nbytes, flops = layer_work(cell, getattr(system, "shape", None)) or (None, None)
     return trace.Reading(ops=ops, host=host, window_s=window_s,
-                         units=calls * per_call, unit=cell.entry.UNIT,
-                         untraced_s_per_unit=win.elapsed_s / units_window,
+                         units=units(outs, calls), unit=cell.entry.UNIT,
+                         untraced_s_per_unit=untraced_s_per_unit,
                          pass1_bytes=nbytes, pass1_flops=flops,
                          latencies_s=win.latencies_s)
 
@@ -211,19 +271,20 @@ def run(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
     ``min_calls`` lengthens a short window to that many calls."""
     cfg, tr = cell.config, cell.traffic
     on_card = torch.device(device).type == "cuda"
-    data = datagen.dataset(cfg["dataset"], seed, device)
-    shape = tuple(data.shape)
+    system = (oracle_system(cell, seed, device, TF32) if control
+              else program_system(cell, seed, device))
     mix = cell.entry.mix(cfg, tr, seed, device)
-    system = (Oracle(cfg, tr, data, TF32) if control
-              else Program(cfg, tr, data, device))
-    _call(cell, system, mix.warm)
+    _call(cell, system, mix.warm, control)
     sync(device)
     setup_s = time.perf_counter() - t_start
-    log(f"set-up {setup_s:.3f} s (dataset {shape}, warm-up call included)")
-    before = system.launches()
+    shape = getattr(system, "shape", None)
+    log(f"set-up {setup_s:.3f} s ({f'dataset {shape}, ' if shape else ''}"
+        "warm-up call included)")
+    launches = getattr(system, "launches", dict)
+    before = launches()
     log(f"card before the window: {card_line() if on_card else device}")
-    win = window(cell, system, mix, seconds, device, setup_s, min_calls)
-    after = system.launches()
+    win = window(cell, system, mix, seconds, device, setup_s, min_calls, control)
+    after = launches()
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     log(f"card after the window: {card_line() if on_card else device}")
     log(f"window {win.elapsed_s:.3f} s: {len(win.latencies_s)} calls, "
@@ -238,7 +299,7 @@ def run(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
                          "kind": torch.cuda.get_device_name() if on_card else "cpu",
                          "count": 1, "memory_peak_bytes": int(peak)}}
     if trace_on and not control:
-        reading = traced(cell, system, mix, win, shape, device)
+        reading = traced(cell, system, mix, win, device)
         for m in cell.per_layer:
             value = reader("metrics", m["name"])(reading)
             if value is not None:
@@ -253,14 +314,16 @@ def run(cell: Cell, seed: int, seconds: float, trace_on: bool, device,
             result["metrics"][m["name"]] = {"value": value, "unit": m["unit"]}
 
     # the reference runs once the program's state is freed, on the same
-    # dataset made again from the seed
-    system.close()
-    del system, data
+    # inputs made again from the seed
+    close = getattr(system, "close", None)
+    if close is not None:
+        close()
+    del system
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ref = Oracle(cfg, tr, datagen.dataset(cfg["dataset"], seed, device), FLOAT64)
+    ref = oracle_system(cell, seed, device, FLOAT64)
     values = cell.entry.readings(cfg, tr, ref, win.inputs, win.outputs, seed)
     ok, rows = check.judge(values, cell.limits)
     log(f"check of a sample against the float64 reference: "

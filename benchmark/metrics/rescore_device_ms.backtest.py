@@ -1,7 +1,7 @@
 """``rescore_device_ms.backtest``: device milliseconds per 64-date chunk
 charged to ``psmc.pass2.rescore``: pass 2's exact rescore of the selected
-blocks (``ops/search.py::_candidate_cross``, the gather of norms, the
-scores) (``benchmark.spans``)."""
+blocks (``csrc/rescore_candidates.cu`` on the card, its plain
+``ops/search.py::_candidate_cross`` on the CPU) (``benchmark.spans``)."""
 from benchmark import spans
 
 

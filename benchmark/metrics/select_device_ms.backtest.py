@@ -1,7 +1,7 @@
 """``select_device_ms.backtest``: device milliseconds per 64-date chunk
-charged to ``psmc.pass2.select`` and ``psmc.pass2.final``: pass 2's block
-tournament, its sort into flat order, the final tournament and the
-certification guard (``benchmark.spans``)."""
+charged to ``psmc.pass2.select`` and ``psmc.pass2.final``: pass 2's two
+selections of the k lowest (``ops/topk.py::select_lowest``: the radix
+select of ``csrc/select_lowest.cu`` on the card) (``benchmark.spans``)."""
 from benchmark import spans
 
 

@@ -1,4 +1,5 @@
-"""The systems a run can drive through the same loop and check.
+"""The systems a search cell drives through the same loop and check (an
+entry that is not a search brings its own, ``harness.program_system``).
 
 :class:`Program` is the system under test: ``shadowing_tpu_torch``'s
 ``PathShadowing`` built on the harness's dataset, driven by the entries
@@ -23,6 +24,7 @@ class Program:
         import shadowing_tpu_torch as st
 
         self.st, self.config, self.tr = st, config, tr
+        self.shape = tuple(data.shape)
         emb = config["embedding"]
         if emb["kind"] == "identity":
             embedding = st.Identity(int(emb["dim"]))
@@ -70,6 +72,7 @@ class Oracle:
     def __init__(self, config: dict, tr: dict, data: torch.Tensor,
                  arith: Arith):
         self.config, self.tr, self.data, self.arith = config, tr, data, arith
+        self.shape = tuple(data.shape)
         self.kernel = search.embedding_kernel(config["embedding"])
 
     def candidates(self, contexts: np.ndarray, extra: int = 0):

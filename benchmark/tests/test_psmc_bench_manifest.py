@@ -72,8 +72,10 @@ def test_cell_resolves_to_its_files(cell):
     assert (ROOT / "benchmark" / "traffic" / f"{wl['traffic']}.json").exists()
     assert (ROOT / "benchmark" / "limits" / f"{cell}.json").exists()
     for attr in ("UNIT", "NUMBERS", "mix", "program", "oracle", "trace_units",
-                 "contexts_per_search", "readings"):
+                 "readings"):
         assert hasattr(c.entry, attr), attr
+    # a search (the default system) counts its pass-1 work by its contexts
+    assert hasattr(c.entry, "program_system") or hasattr(c.entry, "contexts_per_search")
     assert set(c.limits) == set(c.entry.NUMBERS)
     e2e = {m["name"] for m in c.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and c.per_layer
@@ -102,7 +104,7 @@ def test_every_file_under_paths_is_named_from_name_characters():
 
 
 def test_entries_load_by_name():
-    for name in ("rolling_backtest", "predict"):
+    for name in ("rolling_backtest", "predict", "predict_and_smile", "generate"):
         assert entries.load(name).NUMBERS
 
 

@@ -48,10 +48,10 @@ class Reading:
     host: list                  # (name, start_us, dur_us) on the host
     window_s: float             # host-clock length of the traced segment
     units: int                  # units traced
-    unit: str                   # "chunk" or "query"
-    untraced_s_per_unit: float  # the same run's untraced window per unit
-    pass1_bytes: float = 0.0    # pass 1's work per unit (benchmark.work)
-    pass1_flops: float = 0.0
+    unit: str                   # "chunk", "query" or "step"
+    untraced_s_per_unit: float  # the same run's untraced seconds per unit
+    pass1_bytes: float | None = 0.0  # pass 1's work per unit (benchmark.work),
+    pass1_flops: float | None = 0.0  # None where no pass 1 runs
     latencies_s: list = field(default_factory=list)  # untraced window, per call
     busy_s: float = field(init=False)
 
